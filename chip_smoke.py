@@ -1,0 +1,590 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py [--phases 1,2,3,4]
+
+Phases (any failure exits non-zero; no phase's exception is swallowed):
+
+1. environment and build: the card's name and power limit, the torch and
+   CUDA versions, and the ``nvcc`` build of every kernel (seconds and each
+   kernel's registers / shared memory as ``ptxas`` reports them);
+2. each CUDA kernel against its plain PyTorch version on the card, at the
+   shapes of the full-width llama3-8b main path, in fp32 (TF32 off) and
+   bf16: max abs error beside its tolerance, kernel / plain / library
+   times from CUDA events, and the least time the card could take;
+3. the main path: a Cronus PPI->CPI pair serving llama3-8b at full width
+   (bf16, weights drawn on the card from seed 0) over the paged KV pool;
+   every kernel's launch count is set to 0 just before the run and read
+   just after, and each must have launched;
+4. parity: the same trace at full width cut to 2 layers, once with the
+   kernels and once with the plain versions, logits and tokens compared.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits with code 1 and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# tolerances of kernel vs plain version on the same inputs, elementwise:
+# |got - want| <= RTOL * |want| + ATOL.
+# fp32: both sum up to 2048 products in fp32 in a different order (the
+# repo's kernel tests allow 2e-5 absolute).
+# bf16: both compute in fp32 from the same bf16 inputs, whose fp32 results
+# differ by ~1e-6 of the row's scale, and round once to bf16. The two
+# roundings then land at most one bf16 ulp apart, and one ulp is at most
+# 2^-7 of the value (8 significant bits); 2^-12 covers entries near 0. So
+# each element is held to its own size: on a 2048-key row (|out| ~0.04) a
+# dropped 64-key tile or a wrong rescale of acc (~6e-3) fails by 20x.
+TOL = {"float32": (0.0, 2e-5), "bfloat16": (2.0 ** -7, 2.0 ** -12)}
+
+
+def _tol_text(dname):
+    rtol, atol = TOL[dname]
+    return f"tol {rtol:.3g}*|want| + {atol:.3g}"
+
+
+def _errors(got, want, dname):
+    """Max abs error, and the max over elements of |got - want| / tolerance
+    (the check passes iff it is <= 1)."""
+    rtol, atol = TOL[dname]
+    want = want.float()
+    err = (got.float() - want).abs()
+    return err.max().item(), (err / (rtol * want.abs() + atol)).max().item()
+
+# phase 4: bf16 logits of the two runs may differ by a few bf16 ulps of a
+# logit of magnitude 4-8 (ulp 2^-5): 4 ulps.
+LOGIT_TOL = 0.125
+
+# requests served by phases 3 and 4
+N_REQUESTS = 8
+
+
+def log(*args):
+    """Print and flush (the output is read after the run)."""
+    print(*args, flush=True)
+
+
+def _fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# phase 1
+# ---------------------------------------------------------------------------
+
+def phase_env_build(torch):
+    """Print the card and versions; build every kernel; return the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"[phase 1] nvidia-smi: {smi}")
+    log(f"[phase 1] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device "
+        f"{torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"[phase 1] kernels built in {time.perf_counter() - t0:.2f} s "
+        f"({len(logs)} compiled, {len(build.SOURCES) - len(logs)} cached)")
+    for source, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"[phase 1]   {source}: {line.strip()}")
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase 2
+# ---------------------------------------------------------------------------
+
+def _time_ms(torch, fn, flush, iters=20):
+    """Median device time of ``fn`` from CUDA events, L2 flushed before
+    each launch (the main path finds every layer's K/V cold)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _decode_inputs(torch, dtype, rng):
+    """Full-width decode step: B=8, H=32, Kv=8, D=128, page=16, ragged
+    context up to 2048 with one ctx=0 lane, trash-padded tables."""
+    b, h, kvh, d, page, max_pages = 8, 32, 8, 128, 16, 128
+    ctx = np.array([2048, 0, 1, 17, 300, 1000, 1537, 777], np.int32)
+    n_pages = b * max_pages
+    trash = n_pages
+    perm = rng.permutation(n_pages)
+    tables = np.full((b, max_pages), trash, np.int32)
+    at = 0
+    for i, c in enumerate(ctx):
+        live = -(-int(c) // page)
+        tables[i, :live] = perm[at:at + live]
+        at += live
+    dev = "cuda"
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32))
+    kp = torch.from_numpy(rng.standard_normal((n_pages + 1, page, kvh, d),
+                                              np.float32))
+    vp = torch.from_numpy(rng.standard_normal((n_pages + 1, page, kvh, d),
+                                              np.float32))
+    args = (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.from_numpy(tables).to(dev), torch.from_numpy(ctx).to(dev))
+    elt = args[0].element_size()
+    nbytes = (2 * int(ctx.sum()) * kvh * d * elt      # live K/V rows
+              + 2 * b * h * d * elt                    # q, out
+              + 4 * (b + int(np.ceil(ctx / page).sum())))  # lens, tables
+    flops = 4 * int(ctx.sum()) * h * d
+    return args, nbytes, flops
+
+
+def _prefill_inputs(torch, dtype, rng, window):
+    """Full-width prefill chunk: B=1, C=512, H=32, Kv=8, D=128, S=2048,
+    the last chunk of a 2048-token prompt."""
+    b, c, h, kvh, d, s = 1, 512, 32, 8, 128, 2048
+    q_pos = (s - c + np.arange(c, dtype=np.int32))[None]
+    kv_pos = np.arange(s, dtype=np.int32)[None]
+    dev = "cuda"
+    q = torch.from_numpy(rng.standard_normal((b, c, h, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, s, kvh, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, s, kvh, d), np.float32))
+    args = (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            torch.from_numpy(q_pos).to(dev), torch.from_numpy(kv_pos).to(dev))
+    valid = (kv_pos[:, None, :] <= q_pos[:, :, None]) & (kv_pos[:, None, :] >= 0)
+    if window > 0:
+        valid &= kv_pos[:, None, :] > q_pos[:, :, None] - window
+    elt = args[0].element_size()
+    nbytes = (2 * b * c * h * d * elt + 2 * b * s * kvh * d * elt
+              + 4 * b * (c + s))
+    flops = 4 * int(valid.sum()) * h * d       # the pairs this data needs
+    return args, nbytes, flops, torch.from_numpy(valid).to(dev)
+
+
+def _bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sweep(torch):
+    """Kernel vs plain version at the small shapes of the CPU tests (all
+    head dims, GQA ratios and page sizes the kernels take, ragged C and S,
+    padded query rows, ctx=0 lanes and contexts past the table). Fails if
+    any element is outside its tolerance."""
+    from repro_torch.kernels import (chunked_prefill_attention, ops,
+                                     paged_attention)
+    worst, ratio, n = {}, {}, 0
+
+    def note(dname, got, want):
+        err, r = _errors(got, want, dname)
+        worst[dname] = max(worst.get(dname, 0.0), err)
+        ratio[dname] = max(ratio.get(dname, 0.0), r)
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        rng = np.random.default_rng(1)
+
+        def t(shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, np.float32)).to("cuda", dtype)
+
+        for b, c, h, kv, d, s in [(1, 8, 4, 4, 32, 32), (2, 16, 8, 2, 64, 64),
+                                  (2, 8, 8, 1, 64, 64), (1, 32, 4, 4, 128, 32),
+                                  (2, 13, 4, 2, 64, 50), (1, 300, 32, 8, 128,
+                                                          700)]:
+            for window in (0, 8):
+                ctx = np.arange(b) * 5 + 3
+                q_pos = (ctx[:, None] + np.arange(c)[None]).astype(np.int32)
+                q_pos[0, c // 2:c // 2 + 3] = -1          # padded rows
+                kv_pos = np.where(np.arange(s)[None] < (ctx + c)[:, None],
+                                  np.arange(s)[None], -1).astype(np.int32)
+                args = (t((b, c, h, d)), t((b, s, kv, d)), t((b, s, kv, d)),
+                        torch.from_numpy(q_pos).cuda(),
+                        torch.from_numpy(kv_pos).cuda())
+                got = chunked_prefill_attention.chunked_prefill_attention(
+                    *args, window=window)
+                want = ops.chunked_prefill_attention(*args, window=window,
+                                                     use_kernels=False)
+                note(dname, got, want)
+                n += 1
+        for b, h, kv, d, pages, page, maxp in [
+                (2, 8, 2, 64, 16, 8, 4), (3, 4, 4, 32, 8, 16, 3),
+                (1, 8, 1, 128, 32, 8, 8), (4, 4, 2, 32, 24, 4, 6),
+                (4, 4, 2, 32, 24, 8, 6), (5, 32, 8, 128, 40, 16, 8)]:
+            bt = rng.integers(0, pages, (b, maxp)).astype(np.int32)
+            # full table, ctx=0, a context past the table, then ragged
+            cl = np.concatenate([[maxp * page, 0, maxp * page + 5],
+                                 rng.integers(1, maxp * page, b)])[:b]
+            args = (t((b, h, d)), t((pages, page, kv, d)),
+                    t((pages, page, kv, d)), torch.from_numpy(bt).cuda(),
+                    torch.from_numpy(cl.astype(np.int32)).cuda())
+            got = paged_attention.paged_decode_attention(*args)
+            want = ops.paged_decode_attention(*args, use_kernels=False)
+            note(dname, got, want)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"[phase 2] small-shape sweep: {n} cases, worst "
+        + ", ".join(f"{k}: max_abs_err {worst[k]:.3e}, max err/tol "
+                    f"{ratio[k]:.3f} ({_tol_text(k)})" for k in worst))
+    for k, r in ratio.items():
+        if not (r <= 1.0):
+            _fail(f"small-shape sweep {k}: an element is {r:.3f}x its "
+                  f"tolerance")
+
+
+def phase_kernels(torch):
+    """Each kernel against its plain version; returns the bf16 rows of the
+    kernels JSON line (without launches)."""
+    from repro_torch.kernels import (chunked_prefill_attention, ops,
+                                     paged_attention)
+    _sweep(torch)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(0)
+
+        args, nbytes, flops = _decode_inputs(torch, dtype, rng)
+        got = paged_attention.paged_decode_attention(*args)
+        want = ops.paged_decode_attention(*args, use_kernels=False)
+        torch.cuda.synchronize()
+        err, ratio = _errors(got, want, dname)
+        zero_lane = got[1].float().abs().max().item()
+        k_ms = _time_ms(torch, lambda: paged_attention.paged_decode_attention(
+            *args), flush)
+        p_ms = _time_ms(torch, lambda: ops.paged_decode_attention(
+            *args, use_kernels=False), flush)
+        b_ms, b_by = _bound(nbytes, flops, dname)
+        log(f"[phase 2] paged_decode {dname}: max_abs_err {err:.3e} max "
+            f"err/tol {ratio:.3f} ({_tol_text(dname)}) ctx=0 lane max|out| "
+            f"{zero_lane} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+            f"library_ms none (needs a gather) bound_ms {b_ms:.4f} ({b_by})")
+        if not (ratio <= 1.0) or zero_lane != 0.0:
+            _fail(f"paged_decode {dname} disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            rows["paged_decode_attention"] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+        for window in (0, 256):
+            args, nbytes, flops, valid = _prefill_inputs(torch, dtype, rng,
+                                                         window)
+            got = chunked_prefill_attention.chunked_prefill_attention(
+                *args, window=window)
+            want = ops.chunked_prefill_attention(*args, window=window,
+                                                 use_kernels=False)
+            torch.cuda.synchronize()
+            err, ratio = _errors(got, want, dname)
+            k_ms = _time_ms(
+                torch, lambda: chunked_prefill_attention
+                .chunked_prefill_attention(*args, window=window), flush)
+            p_ms = _time_ms(torch, lambda: ops.chunked_prefill_attention(
+                *args, window=window, use_kernels=False), flush)
+            # library yardstick: SDPA with the same mask and GQA grouping
+            q, k, v = (t.transpose(1, 2) for t in args[:3])
+            mask = valid[:, None]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err = (sdpa().transpose(1, 2).float()
+                       - want.float()).abs().max().item()
+            l_ms = _time_ms(torch, sdpa, flush)
+            b_ms, b_by = _bound(nbytes, flops, dname)
+            log(f"[phase 2] chunked_prefill {dname} window={window}: "
+                f"max_abs_err {err:.3e} max err/tol {ratio:.3f} "
+                f"({_tol_text(dname)}) kernel_ms {k_ms:.4f} plain_ms "
+                f"{p_ms:.4f} library_ms {l_ms:.4f} (sdpa err {lib_err:.2e}) "
+                f"bound_ms {b_ms:.4f} ({b_by})")
+            if not (ratio <= 1.0):
+                _fail(f"chunked_prefill {dname} window={window} disagrees "
+                      "with its plain version")
+            if dtype == torch.bfloat16 and window == 0:
+                rows["chunked_prefill_attention"] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=l_ms)
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the main path
+# ---------------------------------------------------------------------------
+
+def make_requests(n, vocab, seed=0, output_len=32):
+    """``n`` prompts of 256-2048 tokens from a numpy seed, all at t=0."""
+    from repro_torch.core.request import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(256, 2049, n)
+    return [Request(req_id=f"r{i}",
+                    prompt=rng.integers(0, vocab, int(n_tok)).astype(
+                        np.int32),
+                    output_len=output_len, arrival=0.0)
+            for i, n_tok in enumerate(lens)]
+
+
+def build_pair(cfg, factory):
+    """The slice's Cronus pair: llama3-8b, A100 CPI + A10 PPI clocks."""
+    from repro_torch.serving import hardware
+    from repro_torch.serving.simulator import build_system
+    return build_system("cronus", cfg, hardware.A100, hardware.A10,
+                        executor_factory=factory, executor="paged",
+                        block_size=16, max_batched_tokens=512, max_slots=16,
+                        num_kv_blocks=2048)
+
+
+class Recorder:
+    """Wraps one engine's executor: kernel launches, wall time (host clock
+    after a synchronise) and, optionally, every emitted logits row."""
+
+    def __init__(self, torch, name, ex, keep_logits=False):
+        from repro_torch.kernels import (chunked_prefill_attention,
+                                         paged_attention)
+        self.name, self.ex = name, ex
+        self.launch = {"prefill": 0, "decode": 0}
+        self.prefill_s, self.prefill_tokens = 0.0, 0
+        self.decode_s, self.decode_steps = 0.0, 0
+        self.rows = {}          # (req_id, token index) -> (logits, token)
+        p_mod, d_mod = chunked_prefill_attention, paged_attention
+        orig_prefill, orig_decode = ex.prefill_chunk, ex.decode
+
+        def counts():
+            return p_mod.launches, d_mod.launches
+
+        def note(before):
+            after = counts()
+            self.launch["prefill"] += after[0] - before[0]
+            self.launch["decode"] += after[1] - before[1]
+
+        def req(slot):
+            r = ex._engine.slots[slot]
+            return r.req_id, len(r.generated)
+
+        def prefill_chunk(slot, tokens, ctx_len, completes, enc_emb=None):
+            before, t0 = counts(), time.perf_counter()
+            tok = orig_prefill(slot, tokens, ctx_len, completes, enc_emb)
+            torch.cuda.synchronize()
+            self.prefill_s += time.perf_counter() - t0
+            self.prefill_tokens += len(tokens)
+            note(before)
+            if keep_logits and completes:
+                self.rows[req(slot)] = (ex.last_logits[0].copy(), tok)
+            return tok
+
+        def decode(slot_tokens, slot_lens):
+            before, t0 = counts(), time.perf_counter()
+            out = orig_decode(slot_tokens, slot_lens)
+            torch.cuda.synchronize()
+            self.decode_s += time.perf_counter() - t0
+            self.decode_steps += 1
+            note(before)
+            if keep_logits:
+                for i, s in enumerate(sorted(slot_tokens)):
+                    self.rows[req(s)] = (ex.last_logits[i].copy(), out[s])
+            return out
+
+        ex.prefill_chunk, ex.decode = prefill_chunk, decode
+
+
+def run_trace(torch, cfg, factory, n_requests, keep_logits=False):
+    """Serve ``n_requests`` through a fresh pair; returns the system, the
+    per-engine recorders, the aggregate metrics and the wall seconds."""
+    system = build_pair(cfg, factory)
+    recs = [Recorder(torch, role, e.executor, keep_logits)
+            for role, e in (("ppi", system.ppi), ("cpi", system.cpi))]
+    reqs = make_requests(n_requests, cfg.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = system.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return system, recs, res, wall, reqs
+
+
+def phase_main_path(torch, n_requests=N_REQUESTS):
+    """Full-width llama3-8b Cronus serving; returns launches per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chunked_prefill_attention, paged_attention
+    from repro_torch.serving.api import paged_executor_factory
+    cfg = dataclasses.replace(get_config("llama3-8b"), dtype="bfloat16")
+    t0 = time.perf_counter()
+    factory = paged_executor_factory(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[phase 3] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab_size} {cfg.dtype}; weights drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    chunked_prefill_attention.launches = 0
+    paged_attention.launches = 0
+    system, recs, res, wall, reqs = run_trace(torch, cfg, factory,
+                                              n_requests)
+    launches = {"chunked_prefill_attention":
+                chunked_prefill_attention.launches,
+                "paged_decode_attention": paged_attention.launches}
+
+    ppi, cpi = recs
+    splits = [(r.req_id, r.input_len, r.partial_len) for r in reqs]
+    n_split = sum(0 < p < n for _, n, p in splits)
+    prefill_s = ppi.prefill_s + cpi.prefill_s
+    prefill_tok = ppi.prefill_tokens + cpi.prefill_tokens
+    log(f"[phase 3] completed {res['completed']}/{n_requests} in "
+        f"{wall:.3f} s wall; (input_len, partial_len): "
+        f"{[(n, p) for _, n, p in splits]}")
+    log(f"[phase 3] prefill {prefill_tok} tokens in {prefill_s:.3f} s "
+        f"= {prefill_tok / max(prefill_s, 1e-9):.1f} tokens/s; CPI decode "
+        f"{cpi.decode_steps} steps, mean "
+        f"{1e3 * cpi.decode_s / max(cpi.decode_steps, 1):.3f} ms/step; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    for rec in recs:
+        log(f"[phase 3] {rec.name}: kernel launches {rec.launch}, prefill "
+            f"{rec.prefill_tokens} tokens, decode {rec.decode_steps} steps")
+    log(f"[phase 3] launches over the run: {launches}")
+    if res["completed"] != n_requests:
+        _fail(f"completed {res['completed']} of {n_requests}")
+    if n_split == 0:
+        _fail("no request was split between PPI and CPI")
+    if ppi.launch["prefill"] == 0 or cpi.launch["prefill"] == 0:
+        _fail("the prefill kernel did not run on both engines")
+    if cpi.launch["decode"] == 0:
+        _fail("the decode kernel did not run on the CPI")
+    if min(launches.values()) == 0:
+        _fail(f"a kernel of the path never launched: {launches}")
+    del system, recs, factory
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_parity(torch, n_requests=N_REQUESTS):
+    """Kernels vs plain versions on the main path, 2 layers at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import GREEDY_TIE_MARGIN
+    from repro_torch.serving.api import paged_executor_factory
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              dtype="bfloat16")
+    runs = {}
+    for use_kernels in (True, False):
+        factory = paged_executor_factory(cfg, device="cuda", seed=0,
+                                         use_kernels=use_kernels)
+        system, recs, res, _, _ = run_trace(torch, cfg, factory, n_requests,
+                                            keep_logits=True)
+        if res["completed"] != n_requests:
+            _fail(f"parity run completed {res['completed']}/{n_requests}")
+        rows = {}
+        for rec in recs:
+            rows.update(rec.rows)
+        runs[use_kernels] = rows
+        del system, recs, factory
+        torch.cuda.empty_cache()
+
+    kern, plain = runs[True], runs[False]
+    if set(kern) != set(plain):
+        _fail("parity runs emitted different (request, token) sets")
+    max_diff, agree, total, ties = 0.0, 0, 0, 0
+    by_req = {}
+    for key in sorted(kern):
+        by_req.setdefault(key[0], []).append(key)
+    for keys in by_req.values():
+        for key in keys:                     # in token order
+            (la, ta), (lb, tb) = kern[key], plain[key]
+            diff = float(np.abs(la - lb).max())
+            max_diff = max(max_diff, diff)
+            total += 1
+            if ta == tb:
+                agree += 1
+                continue
+            # a differing pick must be a near-tie at the greedy margin
+            slack = GREEDY_TIE_MARGIN + diff
+            if not all(row[t] >= row.max() - slack
+                       for row in (la, lb) for t in (ta, tb)):
+                _fail(f"token {key} differs ({ta} vs {tb}) without a "
+                      f"near-tie")
+            ties += 1
+            break                            # the streams diverge after
+    log(f"[phase 4] 2-layer full-width parity: {total} compared steps, "
+        f"max |logit diff| {max_diff:.4f} (tol {LOGIT_TOL}), tokens agree "
+        f"{agree}/{total}, near-tie divergences {ties}")
+    if not (max_diff <= LOGIT_TOL):
+        _fail(f"logits differ by {max_diff} > {LOGIT_TOL}")
+
+
+KERNELS = {
+    "paged_decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:65"),
+    "chunked_prefill_attention": dict(
+        source="src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
+        replaces="src/repro/kernels/chunked_prefill_attention.py:80"),
+}
+
+
+def main() -> int:
+    """Run the phases; exit 0 only if every phase passed."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="1,2,3,4",
+                    help="phases to run after phase 1 (2: kernels alone)")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    smi = phase_env_build(torch)
+    rows = phase_kernels(torch) if 2 in phases else {}
+    launches = phase_main_path(torch) if 3 in phases else {}
+    if 4 in phases:
+        phase_parity(torch)
+    log(f"[done] phases {sorted(phases)} passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    kernels = []
+    for name, meta in KERNELS.items():
+        row = dict(name=name, route="cuda", **meta,
+                   launches=launches.get(name))
+        row.update(rows.get(name, {}))
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
