@@ -6,7 +6,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 
 1. environment and build: the card's name and power limit, the torch and
    CUDA versions, and the ``nvcc`` build of every kernel (seconds and each
-   kernel's registers / shared memory as ``ptxas`` reports them);
+   kernel's registers / shared memory as ``ptxas`` reports them); then,
+   from ``cuobjdump -sass``, each kernel's count of tensor-core
+   (HGMMA/HMMA), async-copy (UTMALDG/LDGSTS) and 16-byte load (LDG.E.128)
+   instructions; fails unless the bf16 prefill kernel uses the tensor cores
+   and the decode kernel loads 16-byte vectors;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the full-width llama3-8b main path, in fp32 (TF32 off) and
    bf16: max abs error beside its tolerance, kernel / plain / library
@@ -14,7 +18,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 3. the main path: a Cronus PPI->CPI pair serving llama3-8b at full width
    (bf16, weights drawn on the card from seed 0) over the paged KV pool;
    every kernel's launch count is set to 0 just before the run and read
-   just after, and each must have launched;
+   just after, and each must have launched. One CPI decode step and one
+   512-token prefill chunk of that run go under ``torch.profiler`` (left
+   out of the timed steps): the top device operations, the device-busy
+   share, and the device kernels each op launches;
 4. parity: the same trace at full width cut to 2 layers, once with the
    kernels and once with the plain versions, logits and tokens compared.
 
@@ -25,8 +32,12 @@ script exits with code 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,24 +117,113 @@ def phase_env_build(torch):
         f"({len(logs)} compiled, {len(build.SOURCES) - len(logs)} cached)")
     for source, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "Performance Loss" in line):
                 log(f"[phase 1]   {source}: {line.strip()}")
+    _sass_check(build)
     return smi
+
+
+# SASS opcodes that show the design: tensor cores, async copies, 16-byte
+# global loads (any LDG with a .128 width)
+SASS_KINDS = {"HGMMA": r"\bHGMMA\.", "HMMA": r"\bHMMA\.",
+              "UTMALDG": r"\bUTMALDG\b", "LDGSTS": r"\bLDGSTS\b",
+              "LDG.E.128": r"\bLDG\.E(\.[A-Z0-9_]+)*\.128\b"}
+
+
+def _tool(name):
+    for path in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
+        if path and os.path.exists(path):
+            return path
+    return None
+
+
+def _sass_counts(lib):
+    """{kernel name: {opcode kind: count}} from ``cuobjdump -sass``."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(SASS_KINDS, 0)
+        elif fn is not None:
+            for kind, pat in SASS_KINDS.items():
+                if re.search(pat, line):
+                    counts[fn][kind] += 1
+    names = list(counts)
+    filt = _tool("cu++filt") or _tool("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [_short_name(n) for n in out]
+    return dict(zip(names, counts.values()))
+
+
+def _short_name(demangled):
+    """``void ns::kernel<(int)128>(args)`` -> ``kernel<128>``."""
+    n = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|cronus::|"
+               r"\((int|unsigned int)\)", "", demangled)
+    depth = 0
+    for i, ch in enumerate(n):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return n[:i]
+    return n
+
+
+def _sass_check(build):
+    """Print each kernel's instruction counts; fail unless the bf16
+    prefill kernel runs on the tensor cores and the decode kernel loads
+    16-byte vectors."""
+    if _tool("cuobjdump") is None:
+        _fail("cuobjdump not found: cannot show the kernels' instructions")
+    tc = {}
+    for source in build.SOURCES:
+        per_fn = _sass_counts(build.library_path(source))
+        total = {k: sum(c[k] for c in per_fn.values()) for k in SASS_KINDS}
+        log(f"[phase 1] SASS {source}: {len(per_fn)} kernels, {total}")
+        for name, c in per_fn.items():
+            text = " ".join(f"{k} {v}" for k, v in c.items() if v)
+            log(f"[phase 1]   {name}: {text or '-'}")
+        tc[source] = per_fn
+    prefill = [c for n, c in tc["chunked_prefill_attention.cu"].items()
+               if re.search(r"tc::kernel|2tc6kernel", n)]
+    if len(prefill) != 3:
+        _fail(f"expected the bf16 prefill kernel at 3 head dims, found "
+              f"{len(prefill)}")
+    if not prefill or not all(c["HMMA"] + c["HGMMA"] > 0 for c in prefill):
+        _fail("the bf16 prefill kernel has no tensor-core instruction")
+    if not any(c["LDG.E.128"] > 0
+               for c in tc["paged_attention.cu"].values()):
+        _fail("the decode kernel has no 16-byte global load")
 
 
 # ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
 
+# SM cycles (~0.5 ms) that the card spins before each timed launch, so the
+# host has queued ``fn``'s kernels before the start event is reached
+HOLD_CYCLES = 1_000_000
+
+
 def _time_ms(torch, fn, flush, iters=20):
     """Median device time of ``fn`` from CUDA events, L2 flushed before
-    each launch (the main path finds every layer's K/V cold)."""
+    each launch (the main path finds every layer's K/V cold). Without the
+    spin before the start event, the time would include the host's time
+    to enqueue ``fn`` whenever that outlasts the flush."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -195,16 +295,23 @@ def _bound(nbytes, flops, dtype_name):
 def _sweep(torch):
     """Kernel vs plain version at the small shapes of the CPU tests (all
     head dims, GQA ratios and page sizes the kernels take, ragged C and S,
-    padded query rows, ctx=0 lanes and contexts past the table). Fails if
-    any element is outside its tolerance."""
+    padded query rows, ctx=0 lanes and contexts past the table), then at
+    shapes that exercise the redesigned kernels' edges: decode contexts of
+    several splits with a ragged last split, contexts shorter than one
+    split, pages of 4/8/16 and G of 1, 2, 3, 4, 8 and 16; prefill tiles the
+    skip rule drops (a padded C tail like the executor's buckets, a
+    kv_pos = -1 tail, window 256). Returns the failures: an element
+    outside its tolerance."""
     from repro_torch.kernels import (chunked_prefill_attention, ops,
                                      paged_attention)
-    worst, ratio, n = {}, {}, 0
+    worst, ratio, where, n = {}, {}, {}, 0
 
-    def note(dname, got, want):
+    def note(dname, got, want, case):
         err, r = _errors(got, want, dname)
         worst[dname] = max(worst.get(dname, 0.0), err)
-        ratio[dname] = max(ratio.get(dname, 0.0), r)
+        if not r <= ratio.get(dname, 0.0):
+            ratio[dname], where[dname] = r, case
+
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         rng = np.random.default_rng(1)
@@ -213,56 +320,80 @@ def _sweep(torch):
             return torch.from_numpy(rng.standard_normal(
                 shape, np.float32)).to("cuda", dtype)
 
+        def prefill(q_pos, kv_pos, h, kv, d, window):
+            (b, c), s = q_pos.shape, kv_pos.shape[1]
+            args = (t((b, c, h, d)), t((b, s, kv, d)), t((b, s, kv, d)),
+                    torch.from_numpy(q_pos.astype(np.int32)).cuda(),
+                    torch.from_numpy(kv_pos.astype(np.int32)).cuda())
+            got = chunked_prefill_attention.chunked_prefill_attention(
+                *args, window=window)
+            want = ops.chunked_prefill_attention(*args, window=window,
+                                                 use_kernels=False)
+            note(dname, got, want, f"prefill q_pos {q_pos.shape} k/v "
+                 f"{tuple(args[1].shape)} window {window}")
+
         for b, c, h, kv, d, s in [(1, 8, 4, 4, 32, 32), (2, 16, 8, 2, 64, 64),
                                   (2, 8, 8, 1, 64, 64), (1, 32, 4, 4, 128, 32),
                                   (2, 13, 4, 2, 64, 50), (1, 300, 32, 8, 128,
                                                           700)]:
             for window in (0, 8):
                 ctx = np.arange(b) * 5 + 3
-                q_pos = (ctx[:, None] + np.arange(c)[None]).astype(np.int32)
+                q_pos = ctx[:, None] + np.arange(c)[None]
                 q_pos[0, c // 2:c // 2 + 3] = -1          # padded rows
                 kv_pos = np.where(np.arange(s)[None] < (ctx + c)[:, None],
-                                  np.arange(s)[None], -1).astype(np.int32)
-                args = (t((b, c, h, d)), t((b, s, kv, d)), t((b, s, kv, d)),
-                        torch.from_numpy(q_pos).cuda(),
-                        torch.from_numpy(kv_pos).cuda())
-                got = chunked_prefill_attention.chunked_prefill_attention(
-                    *args, window=window)
-                want = ops.chunked_prefill_attention(*args, window=window,
-                                                     use_kernels=False)
-                note(dname, got, want)
+                                  np.arange(s)[None], -1)
+                prefill(q_pos, kv_pos, h, kv, d, window)
                 n += 1
-        for b, h, kv, d, pages, page, maxp in [
-                (2, 8, 2, 64, 16, 8, 4), (3, 4, 4, 32, 8, 16, 3),
-                (1, 8, 1, 128, 32, 8, 8), (4, 4, 2, 32, 24, 4, 6),
-                (4, 4, 2, 32, 24, 8, 6), (5, 32, 8, 128, 40, 16, 8)]:
+        # an executor bucket: 300 real queries of a 512 chunk after 700
+        # cached tokens, S padded to 1024 with kv_pos = -1, at windows 0
+        # and 256 (the window drops the leading tiles)
+        q_pos = np.where(np.arange(512) < 300, 700 + np.arange(512), -1)[None]
+        kv_pos = np.where(np.arange(1024) < 1000, np.arange(1024), -1)[None]
+        for h, kv, d in [(32, 8, 128), (8, 8, 64), (16, 1, 32)]:
+            for window in (0, 256):
+                prefill(q_pos, kv_pos, h, kv, d, window)
+                n += 1
+
+        for b, h, kv, d, pages, page, maxp, cl in [
+                (2, 8, 2, 64, 16, 8, 4, None), (3, 4, 4, 32, 8, 16, 3, None),
+                (1, 8, 1, 128, 32, 8, 8, None), (4, 4, 2, 32, 24, 4, 6, None),
+                (4, 4, 2, 32, 24, 8, 6, None), (5, 32, 8, 128, 40, 16, 8, None),
+                # several splits, a ragged last one, ctx=0, past the table
+                (5, 8, 8, 128, 400, 16, 64, [1000, 700, 513, 0, 1033]),
+                # contexts shorter than one split, around its edge
+                (5, 16, 8, 64, 400, 8, 96, [1, 17, 255, 256, 257]),
+                (4, 32, 8, 128, 600, 4, 200, [800, 799, 3, 0]),
+                (3, 64, 8, 32, 200, 16, 40, [640, 300, 90]),
+                (2, 24, 8, 64, 200, 16, 40, [600, 31]),        # G = 3
+                (2, 32, 2, 128, 200, 16, 40, [640, 257])]:     # G = 16
             bt = rng.integers(0, pages, (b, maxp)).astype(np.int32)
-            # full table, ctx=0, a context past the table, then ragged
-            cl = np.concatenate([[maxp * page, 0, maxp * page + 5],
-                                 rng.integers(1, maxp * page, b)])[:b]
+            if cl is None:  # full table, ctx=0, past the table, then ragged
+                cl = np.concatenate([[maxp * page, 0, maxp * page + 5],
+                                     rng.integers(1, maxp * page, b)])[:b]
             args = (t((b, h, d)), t((pages, page, kv, d)),
                     t((pages, page, kv, d)), torch.from_numpy(bt).cuda(),
-                    torch.from_numpy(cl.astype(np.int32)).cuda())
+                    torch.from_numpy(np.asarray(cl, np.int32)).cuda())
             got = paged_attention.paged_decode_attention(*args)
             want = ops.paged_decode_attention(*args, use_kernels=False)
-            note(dname, got, want)
+            note(dname, got, want, f"decode q {tuple(args[0].shape)} pages "
+                 f"{tuple(args[1].shape)} ctx {list(cl)}")
             n += 1
     torch.cuda.synchronize()
     log(f"[phase 2] small-shape sweep: {n} cases, worst "
         + ", ".join(f"{k}: max_abs_err {worst[k]:.3e}, max err/tol "
-                    f"{ratio[k]:.3f} ({_tol_text(k)})" for k in worst))
-    for k, r in ratio.items():
-        if not (r <= 1.0):
-            _fail(f"small-shape sweep {k}: an element is {r:.3f}x its "
-                  f"tolerance")
+                    f"{ratio[k]:.3f} ({_tol_text(k)}) at {where[k]}"
+                    for k in worst))
+    return [f"small-shape sweep {k}: an element is {r:.3f}x its tolerance"
+            for k, r in ratio.items() if not r <= 1.0]
 
 
 def phase_kernels(torch):
     """Each kernel against its plain version; returns the bf16 rows of the
-    kernels JSON line (without launches)."""
+    kernels JSON line (without launches). Every check runs, and every time
+    is taken, before a failure ends the phase."""
     from repro_torch.kernels import (chunked_prefill_attention, ops,
                                      paged_attention)
-    _sweep(torch)
+    failures = _sweep(torch)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -285,7 +416,8 @@ def phase_kernels(torch):
             f"{zero_lane} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
             f"library_ms none (needs a gather) bound_ms {b_ms:.4f} ({b_by})")
         if not (ratio <= 1.0) or zero_lane != 0.0:
-            _fail(f"paged_decode {dname} disagrees with its plain version")
+            failures.append(f"paged_decode {dname} disagrees with its plain "
+                            f"version")
         if dtype == torch.bfloat16:
             rows["paged_decode_attention"] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
@@ -322,14 +454,22 @@ def phase_kernels(torch):
                 f"{p_ms:.4f} library_ms {l_ms:.4f} (sdpa err {lib_err:.2e}) "
                 f"bound_ms {b_ms:.4f} ({b_by})")
             if not (ratio <= 1.0):
-                _fail(f"chunked_prefill {dname} window={window} disagrees "
-                      "with its plain version")
+                failures.append(f"chunked_prefill {dname} window={window} "
+                                f"disagrees with its plain version")
             if dtype == torch.bfloat16 and window == 0:
                 rows["chunked_prefill_attention"] = dict(
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=l_ms)
     del flush
     torch.cuda.empty_cache()
+    if failures:
+        _fail("; ".join(failures))
+    dec, pre = rows["paged_decode_attention"], rows[
+        "chunked_prefill_attention"]
+    log(f"[phase 2] bf16 bars: prefill kernel_ms {pre['ms']:.4f} <= SDPA "
+        f"{pre['library_ms']:.4f}: {pre['ms'] <= pre['library_ms']}; decode "
+        f"kernel_ms {dec['ms']:.4f} <= 0.05 and < plain {dec['plain_ms']:.4f}:"
+        f" {dec['ms'] <= 0.05 and dec['ms'] < dec['plain_ms']}")
     return rows
 
 
@@ -359,51 +499,96 @@ def build_pair(cfg, factory):
                         num_kv_blocks=2048)
 
 
+# one executor call run under ``torch.profiler``: its label, its kind
+# ("prefill" or "decode"), the profiler, its wall seconds and the launches
+# of each op in it
+Profile = collections.namedtuple("Profile",
+                                 "label kind prof wall_s launches")
+
+
 class Recorder:
     """Wraps one engine's executor: kernel launches, wall time (host clock
-    after a synchronise) and, optionally, every emitted logits row."""
+    after a synchronise) and, optionally, every emitted logits row. With
+    ``profile``, one decode step (``{"decode": n}``: the n-th) and one
+    prefill chunk (``{"prefill": (tokens, n)}``: the n-th of that many
+    tokens) run under ``torch.profiler`` and are kept in
+    ``self.profiles``; their launches count, their times and tokens do
+    not."""
 
-    def __init__(self, torch, name, ex, keep_logits=False):
+    def __init__(self, torch, name, ex, keep_logits=False, profile=None):
         from repro_torch.kernels import (chunked_prefill_attention,
                                          paged_attention)
         self.name, self.ex = name, ex
         self.launch = {"prefill": 0, "decode": 0}
         self.prefill_s, self.prefill_tokens = 0.0, 0
-        self.decode_s, self.decode_steps = 0.0, 0
+        self.chunk_s = {}       # chunk tokens -> [seconds] (unprofiled)
+        self.decode_s, self.decode_steps, self.step_s = 0.0, 0, []
+        self.profiled_s = 0.0   # in profiled calls, with the profiler's own
         self.rows = {}          # (req_id, token index) -> (logits, token)
+        self.profiles = []
+        want = profile or {}
+        calls = {"decode": 0}   # calls so far, by kind or chunk tokens
         p_mod, d_mod = chunked_prefill_attention, paged_attention
         orig_prefill, orig_decode = ex.prefill_chunk, ex.decode
 
         def counts():
             return p_mod.launches, d_mod.launches
 
-        def note(before):
+        def call(kind, label, fn):
+            """Run ``fn`` timed, or under the profiler when ``label`` is
+            given; returns its result and its seconds (None if profiled)."""
+            before, t0 = counts(), time.perf_counter()
+            if label is None:
+                out = fn()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            else:
+                out, prof, wall = self._profiled(torch, fn)
+                self.profiled_s += time.perf_counter() - t0
+                secs = None
             after = counts()
             self.launch["prefill"] += after[0] - before[0]
             self.launch["decode"] += after[1] - before[1]
+            if label is not None:
+                self.profiles.append(Profile(label, kind, prof, wall, {
+                    "chunked_prefill_attention": after[0] - before[0],
+                    "paged_decode_attention": after[1] - before[1]}))
+            return out, secs
 
         def req(slot):
             r = ex._engine.slots[slot]
             return r.req_id, len(r.generated)
 
         def prefill_chunk(slot, tokens, ctx_len, completes, enc_emb=None):
-            before, t0 = counts(), time.perf_counter()
-            tok = orig_prefill(slot, tokens, ctx_len, completes, enc_emb)
-            torch.cuda.synchronize()
-            self.prefill_s += time.perf_counter() - t0
-            self.prefill_tokens += len(tokens)
-            note(before)
+            n = len(tokens)
+            calls[n] = calls.get(n, 0) + 1
+            label = None
+            if want.get("prefill") == (n, calls[n]):
+                label = (f"{name} prefill chunk of {n} tokens after "
+                         f"{ctx_len} cached")
+            tok, secs = call("prefill", label, lambda: orig_prefill(
+                slot, tokens, ctx_len, completes, enc_emb))
+            if secs is not None:
+                self.prefill_s += secs
+                self.prefill_tokens += n
+                self.chunk_s.setdefault(n, []).append(secs)
             if keep_logits and completes:
                 self.rows[req(slot)] = (ex.last_logits[0].copy(), tok)
             return tok
 
         def decode(slot_tokens, slot_lens):
-            before, t0 = counts(), time.perf_counter()
-            out = orig_decode(slot_tokens, slot_lens)
-            torch.cuda.synchronize()
-            self.decode_s += time.perf_counter() - t0
-            self.decode_steps += 1
-            note(before)
+            calls["decode"] += 1
+            label = None
+            if want.get("decode") == calls["decode"]:
+                label = (f"{name} decode step {calls['decode']} "
+                         f"({len(slot_tokens)} lanes, contexts "
+                         f"{sorted(slot_lens.values())})")
+            out, secs = call("decode", label,
+                             lambda: orig_decode(slot_tokens, slot_lens))
+            if secs is not None:
+                self.decode_s += secs
+                self.decode_steps += 1
+                self.step_s.append(secs)
             if keep_logits:
                 for i, s in enumerate(sorted(slot_tokens)):
                     self.rows[req(s)] = (ex.last_logits[i].copy(), out[s])
@@ -411,12 +596,30 @@ class Recorder:
 
         ex.prefill_chunk, ex.decode = prefill_chunk, decode
 
+    @staticmethod
+    def _profiled(torch, fn):
+        """Run ``fn`` once under the profiler (CPU and CUDA activity),
+        between two synchronises; return its result, the profiler and the
+        wall seconds."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, prof, wall
 
-def run_trace(torch, cfg, factory, n_requests, keep_logits=False):
+
+def run_trace(torch, cfg, factory, n_requests, keep_logits=False,
+              profile=None):
     """Serve ``n_requests`` through a fresh pair; returns the system, the
-    per-engine recorders, the aggregate metrics and the wall seconds."""
+    per-engine recorders, the aggregate metrics and the wall seconds.
+    ``profile`` maps an engine ("ppi"/"cpi") to its Recorder's profile."""
     system = build_pair(cfg, factory)
-    recs = [Recorder(torch, role, e.executor, keep_logits)
+    recs = [Recorder(torch, role, e.executor, keep_logits,
+                     (profile or {}).get(role))
             for role, e in (("ppi", system.ppi), ("cpi", system.cpi))]
     reqs = make_requests(n_requests, cfg.vocab_size)
     torch.cuda.synchronize()
@@ -442,10 +645,12 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
 
+    # one CPI decode step and the PPI's first full prefill chunk run under
+    # the profiler; their launches count, their times and tokens do not
     chunked_prefill_attention.launches = 0
     paged_attention.launches = 0
-    system, recs, res, wall, reqs = run_trace(torch, cfg, factory,
-                                              n_requests)
+    system, recs, res, wall, reqs = run_trace(torch, cfg, factory, n_requests,
+                                              profile=PROFILE)
     launches = {"chunked_prefill_attention":
                 chunked_prefill_attention.launches,
                 "paged_decode_attention": paged_attention.launches}
@@ -455,18 +660,25 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
     n_split = sum(0 < p < n for _, n, p in splits)
     prefill_s = ppi.prefill_s + cpi.prefill_s
     prefill_tok = ppi.prefill_tokens + cpi.prefill_tokens
+    step_ms = 1e3 * cpi.decode_s / max(cpi.decode_steps, 1)
+    chunk_tokens = PROFILE["ppi"]["prefill"][0]
+    chunks = ppi.chunk_s.get(chunk_tokens, []) + cpi.chunk_s.get(
+        chunk_tokens, [])
+    profiled_s = ppi.profiled_s + cpi.profiled_s
     log(f"[phase 3] completed {res['completed']}/{n_requests} in "
-        f"{wall:.3f} s wall; (input_len, partial_len): "
+        f"{wall:.3f} s wall, {wall - profiled_s:.3f} s without the "
+        f"profiled calls ({profiled_s:.3f} s with the profiler's start and "
+        f"stop); (input_len, partial_len): "
         f"{[(n, p) for _, n, p in splits]}")
     log(f"[phase 3] prefill {prefill_tok} tokens in {prefill_s:.3f} s "
         f"= {prefill_tok / max(prefill_s, 1e-9):.1f} tokens/s; CPI decode "
-        f"{cpi.decode_steps} steps, mean "
-        f"{1e3 * cpi.decode_s / max(cpi.decode_steps, 1):.3f} ms/step; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
+        f"{cpi.decode_steps} steps, mean {step_ms:.3f} ms/step (profiled "
+        f"calls left out); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for rec in recs:
         log(f"[phase 3] {rec.name}: kernel launches {rec.launch}, prefill "
-            f"{rec.prefill_tokens} tokens, decode {rec.decode_steps} steps")
+            f"{rec.prefill_tokens} tokens, decode {rec.decode_steps} steps "
+            f"timed, {len(rec.profiles)} calls profiled")
     log(f"[phase 3] launches over the run: {launches}")
     if res["completed"] != n_requests:
         _fail(f"completed {res['completed']} of {n_requests}")
@@ -478,9 +690,80 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
         _fail("the decode kernel did not run on the CPI")
     if min(launches.values()) == 0:
         _fail(f"a kernel of the path never launched: {launches}")
+
+    # where a step's time goes, and how many device kernels each op
+    # launches, from the profiled calls
+    profiles = [p for rec in recs for p in rec.profiles]
+    if not profiles:
+        log("[phase 3] profile: no call matched; not measured")
+    unprofiled = {
+        "decode": (statistics.median(cpi.step_s) if cpi.step_s else None,
+                   "CPI decode step"),
+        "prefill": (statistics.median(chunks) if chunks else None,
+                    f"{chunk_tokens}-token chunk")}
+    n_dev, n_op = dict.fromkeys(KERNELS, 0), dict.fromkeys(KERNELS, 0)
+    for p in profiles:
+        found = _report_profile(p, *unprofiled[p.kind])
+        for name in KERNELS:
+            n_dev[name] += found.get(name, 0)
+            n_op[name] += p.launches[name]
+    per_launch = {name: n_dev[name] / n_op[name] if n_op[name] else None
+                  for name in KERNELS}
+    log(f"[phase 3] device kernels per launch of each op (profiled calls): "
+        f"{per_launch}")
     del system, recs, factory
     torch.cuda.empty_cache()
-    return launches
+    return launches, per_launch
+
+
+# the calls profiled in phase 3: the PPI's second 512-token prefill chunk
+# (the first one meets the run's first GEMM shapes), and the CPI's 24th
+# decode step (all lanes are decoding by then)
+PROFILE = {"ppi": {"prefill": (512, 2)}, "cpi": {"decode": 24}}
+
+
+def _report_profile(p, unprofiled_s, what, top=8):
+    """Print the top device operations of one profiled call, and the share
+    of its wall time (host clock, between two synchronises) in which the
+    device ran anything, beside the same busy time over ``unprofiled_s``,
+    the median time of ``what`` unprofiled in the same run (the profiler
+    slows the host; the median leaves out the first calls' warm-up).
+    Returns {op name: device kernels of that op in the call}."""
+    from torch.autograd import DeviceType
+    spans, by_name = [], {}
+    for e in p.prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (end - start))
+    if not spans:
+        log(f"[phase 3] profile {p.label}: the profiler recorded no device "
+            f"activity; device time not measured")
+        return {}
+    busy, cur_s, cur_e = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_e is None or start > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    busy += cur_e - cur_s
+    unprofiled = ("not measured" if unprofiled_s is None else
+                  f"{100 * busy / (unprofiled_s * 1e6):.1f}% of the median "
+                  f"unprofiled {what}, {unprofiled_s * 1e3:.3f} ms")
+    log(f"[phase 3] profile {p.label}: wall {p.wall_s * 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / (p.wall_s * 1e6):.1f}% of "
+        f"the profiled wall; {unprofiled}), {len(spans)} device ops")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    for name, (n, t) in ranked:
+        log(f"[phase 3]   {t / 1e3:8.3f} ms {100 * t / busy:5.1f}% of busy "
+            f"x{n:<4d} {name[:110]}")
+    return {op: sum(n for name, (n, _) in by_name.items()
+                    if re.search(DEVICE_KERNELS[op], name))
+            for op in KERNELS}
 
 
 def phase_parity(torch, n_requests=N_REQUESTS):
@@ -536,6 +819,9 @@ def phase_parity(torch, n_requests=N_REQUESTS):
         _fail(f"logits differ by {max_diff} > {LOGIT_TOL}")
 
 
+# ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
+# in phase 3's profiled calls, as the device kernels named by
+# DEVICE_KERNELS over the op's launches there
 KERNELS = {
     "paged_decode_attention": dict(
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -543,6 +829,11 @@ KERNELS = {
     "chunked_prefill_attention": dict(
         source="src/repro_torch/kernels/csrc/chunked_prefill_attention.cu",
         replaces="src/repro/kernels/chunked_prefill_attention.py:80"),
+}
+DEVICE_KERNELS = {
+    "paged_decode_attention": r"cronus::.*\b(split_kernel|merge_kernel)<",
+    "chunked_prefill_attention":
+        r"cronus::.*\b(tc::kernel|chunked_prefill_kernel)<",
 }
 
 
@@ -566,7 +857,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_env_build(torch)
     rows = phase_kernels(torch) if 2 in phases else {}
-    launches = phase_main_path(torch) if 3 in phases else {}
+    launches, per_launch = (phase_main_path(torch) if 3 in phases
+                            else ({}, {}))
     if 4 in phases:
         phase_parity(torch)
     log(f"[done] phases {sorted(phases)} passed in "
@@ -575,6 +867,7 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         row = dict(name=name, route="cuda", **meta,
+                   kernels_per_launch=per_launch.get(name),
                    launches=launches.get(name))
         row.update(rows.get(name, {}))
         kernels.append(row)

@@ -7,7 +7,8 @@ tensor the wrapper launches the kernel or raises; on a CPU tensor it
 computes the plain version
 (:func:`repro_torch.kernels.ref.chunked_prefill_attention_ref`), because
 the kernel has no CPU mode. The kernel masks ragged C and S edges itself,
-so nothing is padded here.
+so nothing is padded here. bf16 runs on the tensor cores; fp32 (parity
+checks) on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -65,6 +66,9 @@ def _check(q, k, v, q_pos, kv_pos, window):
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError("chunked_prefill_attention: all inputs must lie on "
                          "one CUDA device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("chunked_prefill_attention: q/k/v must be 16-byte "
+                         "aligned (the kernel copies 16-byte chunks)")
 
 
 def chunked_prefill_attention(q: torch.Tensor, k: torch.Tensor,
