@@ -1,16 +1,17 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
-1. environment and build: the card's name and power limit, the torch and
-   CUDA versions, and the ``nvcc`` build of every kernel (seconds and each
-   kernel's registers / shared memory as ``ptxas`` reports them); then,
-   from ``cuobjdump -sass``, each kernel's count of tensor-core
-   (HGMMA/HMMA), async-copy (UTMALDG/LDGSTS) and 16-byte load (LDG.E.128)
-   instructions; fails unless the bf16 prefill kernel uses the tensor cores
-   and the decode kernel loads 16-byte vectors;
+1. environment and build: the card's name and power limit (the line of
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``), the
+   torch and CUDA versions, and the ``nvcc`` build of every kernel
+   (seconds and each kernel's registers / shared memory as ``ptxas``
+   reports them); then, from ``cuobjdump -sass``, each kernel's count of
+   tensor-core (HGMMA/HMMA), async-copy (UTMALDG/LDGSTS) and 16-byte load
+   (LDG.E.128) instructions; fails unless the bf16 prefill kernel uses the
+   tensor cores and the decode kernel loads 16-byte vectors;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the full-width llama3-8b main path, in fp32 (TF32 off) and
    bf16: max abs error beside its tolerance, kernel / plain / library
@@ -23,17 +24,32 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    out of the timed steps): the top device operations, the device-busy
    share, and the device kernels each op launches;
 4. parity: the same trace at full width cut to 2 layers, once with the
-   kernels and once with the plain versions, logits and tokens compared.
+   kernels and once with the plain versions, logits and tokens compared;
+5. the serving surface: each of cronus, disagg_hl, disagg_lh, dp and pp
+   built by ``ServeSpec(executor="paged").build(device="cuda")`` around
+   one full-width, full-depth bf16 model and serving phase 3's requests
+   through ``InferenceService.run``; each must complete them all with
+   both kernels launched (counts set to 0 before each run). Per approach:
+   wall seconds, prefill tokens/s on the card, peak device memory and the
+   ``aggregate`` keys, which are simulated-clock values (the engines'
+   clocks are the A100/A10 device models). Then ``python -m
+   repro_torch.launch.serve`` in a subprocess, which must complete 4/4;
+6. the slot executor: Cronus through ``ServeSpec(executor="real")`` at
+   full width and depth on the same requests (its CPI decode-step ms
+   beside the paged executor's from phase 3), then slot against paged at
+   2 layers on the same weights and trace, held to phase 4's rule.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits with code 1 and prints no result.
+The line before the last is a JSON object with one entry per kernel
+(``launches`` counts phases 3 and 5); the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device the script exits with code 1
+and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -101,12 +117,13 @@ def _fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def phase_env_build(torch):
-    """Print the card and versions; build every kernel; return the card."""
+    """Print the card and versions; build every kernel."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(f"[phase 1] nvidia-smi: {smi}")
+    log("[phase 1] nvidia-smi --query-gpu=name,power.limit:")
+    log(smi)
     log(f"[phase 1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
@@ -121,7 +138,6 @@ def phase_env_build(torch):
                     or "Performance Loss" in line):
                 log(f"[phase 1]   {source}: {line.strip()}")
     _sass_check(build)
-    return smi
 
 
 # SASS opcodes that show the design: tensor cores, async copies, 16-byte
@@ -515,14 +531,18 @@ class Recorder:
     ``self.profiles``; their launches count, their times and tokens do
     not."""
 
-    def __init__(self, torch, name, ex, keep_logits=False, profile=None):
+    def __init__(self, torch, name, engine, keep_logits=False,
+                 profile=None):
         from repro_torch.kernels import (chunked_prefill_attention,
                                          paged_attention)
+        ex = engine.executor
         self.name, self.ex = name, ex
         self.launch = {"prefill": 0, "decode": 0}
         self.prefill_s, self.prefill_tokens = 0.0, 0
         self.chunk_s = {}       # chunk tokens -> [seconds] (unprofiled)
         self.decode_s, self.decode_steps, self.step_s = 0.0, 0, []
+        # every call, profiled or not: prefill chunks, decode steps, lanes
+        self.calls = {"prefill": 0, "decode": 0, "lanes": 0}
         self.profiled_s = 0.0   # in profiled calls, with the profiler's own
         self.rows = {}          # (req_id, token index) -> (logits, token)
         self.profiles = []
@@ -556,12 +576,13 @@ class Recorder:
             return out, secs
 
         def req(slot):
-            r = ex._engine.slots[slot]
+            r = engine.slots[slot]
             return r.req_id, len(r.generated)
 
         def prefill_chunk(slot, tokens, ctx_len, completes, enc_emb=None):
             n = len(tokens)
             calls[n] = calls.get(n, 0) + 1
+            self.calls["prefill"] += 1
             label = None
             if want.get("prefill") == (n, calls[n]):
                 label = (f"{name} prefill chunk of {n} tokens after "
@@ -578,6 +599,8 @@ class Recorder:
 
         def decode(slot_tokens, slot_lens):
             calls["decode"] += 1
+            self.calls["decode"] += 1
+            self.calls["lanes"] += len(slot_tokens)
             label = None
             if want.get("decode") == calls["decode"]:
                 label = (f"{name} decode step {calls['decode']} "
@@ -618,7 +641,7 @@ def run_trace(torch, cfg, factory, n_requests, keep_logits=False,
     per-engine recorders, the aggregate metrics and the wall seconds.
     ``profile`` maps an engine ("ppi"/"cpi") to its Recorder's profile."""
     system = build_pair(cfg, factory)
-    recs = [Recorder(torch, role, e.executor, keep_logits,
+    recs = [Recorder(torch, role, e, keep_logits,
                      (profile or {}).get(role))
             for role, e in (("ppi", system.ppi), ("cpi", system.cpi))]
     reqs = make_requests(n_requests, cfg.vocab_size)
@@ -637,7 +660,7 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
     from repro_torch.serving.api import paged_executor_factory
     cfg = dataclasses.replace(get_config("llama3-8b"), dtype="bfloat16")
     t0 = time.perf_counter()
-    factory = paged_executor_factory(cfg, device="cuda", seed=0)
+    factory = paged_executor_factory(cfg, device="cuda")
     torch.cuda.synchronize()
     log(f"[phase 3] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
         f"heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff {cfg.d_ff} vocab "
@@ -711,9 +734,9 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
                   for name in KERNELS}
     log(f"[phase 3] device kernels per launch of each op (profiled calls): "
         f"{per_launch}")
-    del system, recs, factory
-    torch.cuda.empty_cache()
-    return launches, per_launch
+    del system, recs, factory, ppi, cpi, rec
+    _free(torch)
+    return launches, per_launch, step_ms
 
 
 # the calls profiled in phase 3: the PPI's second 512-token prefill chunk
@@ -722,7 +745,7 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
 PROFILE = {"ppi": {"prefill": (512, 2)}, "cpi": {"decode": 24}}
 
 
-def _report_profile(p, unprofiled_s, what, top=8):
+def _report_profile(p, unprofiled_s, what, top=8, tag="[phase 3]"):
     """Print the top device operations of one profiled call, and the share
     of its wall time (host clock, between two synchronises) in which the
     device ran anything, beside the same busy time over ``unprofiled_s``,
@@ -739,7 +762,7 @@ def _report_profile(p, unprofiled_s, what, top=8):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + (end - start))
     if not spans:
-        log(f"[phase 3] profile {p.label}: the profiler recorded no device "
+        log(f"{tag} profile {p.label}: the profiler recorded no device "
             f"activity; device time not measured")
         return {}
     busy, cur_s, cur_e = 0.0, None, None
@@ -754,12 +777,12 @@ def _report_profile(p, unprofiled_s, what, top=8):
     unprofiled = ("not measured" if unprofiled_s is None else
                   f"{100 * busy / (unprofiled_s * 1e6):.1f}% of the median "
                   f"unprofiled {what}, {unprofiled_s * 1e3:.3f} ms")
-    log(f"[phase 3] profile {p.label}: wall {p.wall_s * 1e3:.3f} ms, device "
+    log(f"{tag} profile {p.label}: wall {p.wall_s * 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms ({100 * busy / (p.wall_s * 1e6):.1f}% of "
         f"the profiled wall; {unprofiled}), {len(spans)} device ops")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     for name, (n, t) in ranked:
-        log(f"[phase 3]   {t / 1e3:8.3f} ms {100 * t / busy:5.1f}% of busy "
+        log(f"{tag}   {t / 1e3:8.3f} ms {100 * t / busy:5.1f}% of busy "
             f"x{n:<4d} {name[:110]}")
     return {op: sum(n for name, (n, _) in by_name.items()
                     if re.search(DEVICE_KERNELS[op], name))
@@ -769,54 +792,254 @@ def _report_profile(p, unprofiled_s, what, top=8):
 def phase_parity(torch, n_requests=N_REQUESTS):
     """Kernels vs plain versions on the main path, 2 layers at full width."""
     from repro_torch.configs import get_config
-    from repro_torch.core.executor import GREEDY_TIE_MARGIN
     from repro_torch.serving.api import paged_executor_factory
     cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
                               dtype="bfloat16")
     runs = {}
     for use_kernels in (True, False):
-        factory = paged_executor_factory(cfg, device="cuda", seed=0,
+        factory = paged_executor_factory(cfg, device="cuda",
                                          use_kernels=use_kernels)
         system, recs, res, _, _ = run_trace(torch, cfg, factory, n_requests,
                                             keep_logits=True)
         if res["completed"] != n_requests:
             _fail(f"parity run completed {res['completed']}/{n_requests}")
-        rows = {}
-        for rec in recs:
-            rows.update(rec.rows)
-        runs[use_kernels] = rows
+        runs[use_kernels] = {k: v for rec in recs
+                             for k, v in rec.rows.items()}
         del system, recs, factory
-        torch.cuda.empty_cache()
+        _free(torch)
 
-    kern, plain = runs[True], runs[False]
-    if set(kern) != set(plain):
-        _fail("parity runs emitted different (request, token) sets")
+    _compare_rows(runs[True], runs[False], "[phase 4] 2-layer full-width "
+                  "parity, kernels vs plain versions")
+
+
+def _compare_rows(got, want, what):
+    """Hold two runs' emitted logits rows to each other: every compared
+    step within ``LOGIT_TOL``; a token may differ only at a near-tie
+    (both picks within ``GREEDY_TIE_MARGIN`` plus the step's logit
+    difference of the top), after which that request is compared no
+    further (the streams diverge)."""
+    from repro_torch.core.executor import GREEDY_TIE_MARGIN
+    if set(got) != set(want):
+        _fail(f"{what}: the runs emitted different (request, token) sets")
     max_diff, agree, total, ties = 0.0, 0, 0, 0
     by_req = {}
-    for key in sorted(kern):
+    for key in sorted(got):
         by_req.setdefault(key[0], []).append(key)
     for keys in by_req.values():
         for key in keys:                     # in token order
-            (la, ta), (lb, tb) = kern[key], plain[key]
+            (la, ta), (lb, tb) = got[key], want[key]
             diff = float(np.abs(la - lb).max())
             max_diff = max(max_diff, diff)
             total += 1
             if ta == tb:
                 agree += 1
                 continue
-            # a differing pick must be a near-tie at the greedy margin
             slack = GREEDY_TIE_MARGIN + diff
             if not all(row[t] >= row.max() - slack
                        for row in (la, lb) for t in (ta, tb)):
-                _fail(f"token {key} differs ({ta} vs {tb}) without a "
-                      f"near-tie")
+                _fail(f"{what}: token {key} differs ({ta} vs {tb}) "
+                      f"without a near-tie")
             ties += 1
             break                            # the streams diverge after
-    log(f"[phase 4] 2-layer full-width parity: {total} compared steps, "
-        f"max |logit diff| {max_diff:.4f} (tol {LOGIT_TOL}), tokens agree "
-        f"{agree}/{total}, near-tie divergences {ties}")
+    log(f"{what}: {total} compared steps, max |logit diff| {max_diff:.4f} "
+        f"(tol {LOGIT_TOL}), tokens agree {agree}/{total}, near-tie "
+        f"divergences {ties}")
     if not (max_diff <= LOGIT_TOL):
-        _fail(f"logits differ by {max_diff} > {LOGIT_TOL}")
+        _fail(f"{what}: logits differ by {max_diff} > {LOGIT_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the serving surface and the slot executor
+# ---------------------------------------------------------------------------
+
+# phase 5 serves each of these through ``ServeSpec(...).build()``
+APPROACHES = ("cronus", "disagg_hl", "disagg_lh", "dp", "pp")
+# the ``aggregate`` keys printed per approach (simulated clocks)
+AGG_KEYS = ("ttft_p50", "ttft_p99", "tbt_p50", "tbt_p99", "throughput")
+# phase 6: the slot executor's engine slots and per-slot KV capacity (the
+# longest prompt plus its output, 2048 + 32, with headroom)
+SLOTS, S_KV = 8, 2560
+# the launcher run of phase 5
+LAUNCH_ARGS = ["--arch", "llama3-8b", "--approach", "cronus", "--executor",
+               "paged", "--num-kv-blocks", "2048", "--n-requests", "4",
+               "--scale", "0.02", "--device", "cuda"]
+
+
+def _full_model(torch, cfg):
+    """llama3-8b weights drawn once on the card from seed 0."""
+    from repro_torch.models.transformer import DecoderModel
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DecoderModel(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _free(torch):
+    """Return the memory of what was just deleted to the card (an engine
+    and its executor, and a service and its engines, hold each other, so
+    a collection is needed)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _serve(torch, spec, model, n_requests, profile=None):
+    """Build ``spec`` on the card around ``model`` and serve the smoke's
+    requests through ``InferenceService.run``; every kernel count is set
+    to 0 just before the run and read just after. ``profile`` maps an
+    engine's name to its Recorder's profile. Returns the service, a
+    Recorder per engine, the metrics, the wall seconds (host clock
+    between two synchronises) and the launches."""
+    from repro_torch.kernels import chunked_prefill_attention, paged_attention
+    service = spec.build(model=model, device="cuda")
+    recs = [Recorder(torch, e.name, e, profile=(profile or {}).get(e.name))
+            for e in service.engines]
+    reqs = make_requests(n_requests, model.cfg.vocab_size)
+    chunked_prefill_attention.launches = 0
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = service.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"chunked_prefill_attention":
+                chunked_prefill_attention.launches,
+                "paged_decode_attention": paged_attention.launches}
+    return service, recs, res, wall, launches
+
+
+def _report(torch, tag, recs, res, wall, n_requests):
+    """Print one served run's wall, prefill tokens/s, decode steps, peak
+    memory and simulated-clock aggregates; returns the Recorder of the
+    engine that decoded most and its mean decode ms per step (profiled
+    calls left out)."""
+    prefill_s = sum(r.prefill_s for r in recs)
+    prefill_tok = sum(r.prefill_tokens for r in recs)
+    dec = max(recs, key=lambda r: r.decode_steps)
+    step_ms = 1e3 * dec.decode_s / max(dec.decode_steps, 1)
+    log(f"{tag}: completed {res['completed']}/{n_requests} in {wall:.3f} s "
+        f"wall; prefill {prefill_tok} tokens in {prefill_s:.3f} s = "
+        f"{prefill_tok / max(prefill_s, 1e-9):.1f} tokens/s on the card; "
+        f"{dec.name} decode {dec.decode_steps} steps, mean {step_ms:.3f} "
+        f"ms/step; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    agg = ", ".join(f"{k} {res[k]:.6g}" for k in AGG_KEYS)
+    log(f"{tag}: aggregate on the simulated clocks (A100/A10 device "
+        f"models, not the H100): {agg}")
+    if res["completed"] != n_requests:
+        _fail(f"{tag}: completed {res['completed']} of {n_requests}")
+    return dec, step_ms
+
+
+def phase_surface(torch, n_requests=N_REQUESTS):
+    """The five approaches through ``ServeSpec(executor="paged").build()``
+    and ``InferenceService.run`` at full width and depth, then the
+    ``repro_torch.launch.serve`` launcher in a subprocess. Returns the
+    launches per kernel over the five runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import ServeSpec
+    cfg = get_config("llama3-8b")
+    model, secs = _full_model(torch, cfg)
+    log(f"[phase 5] {cfg.name} {cfg.n_layers} layers {cfg.dtype}: weights "
+        f"drawn on the card in {secs:.2f} s")
+    total = dict.fromkeys(KERNELS, 0)
+    for approach in APPROACHES:
+        spec = ServeSpec(approach=approach, executor="paged", block_size=16,
+                         max_slots=16, num_kv_blocks=2048)
+        torch.cuda.reset_peak_memory_stats()
+        service, recs, res, wall, launches = _serve(torch, spec, model,
+                                                    n_requests)
+        tag = f"[phase 5] {approach}"
+        _report(torch, tag, recs, res, wall, n_requests)
+        log(f"{tag}: launches {launches}; per engine (prefill chunks, "
+            f"decode steps, decode lanes): "
+            + ", ".join(f"{r.name} ({r.calls['prefill']}, "
+                        f"{r.calls['decode']}, {r.calls['lanes']})"
+                        for r in recs))
+        if min(launches.values()) == 0:
+            _fail(f"{tag}: a kernel of the path never launched: {launches}")
+        for name in KERNELS:
+            total[name] += launches[name]
+        del service, recs
+        _free(torch)
+    del model
+    _free(torch)
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_ARGS]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        _fail(f"launch.serve exited {run.returncode}: {run.stderr[-2000:]}")
+    metrics = json.loads(run.stdout)
+    log(f"[phase 5] python -m repro_torch.launch.serve "
+        f"{' '.join(LAUNCH_ARGS)}: exit 0 in {secs:.1f} s, completed "
+        f"{metrics['completed']}, simulated-clock "
+        + ", ".join(f"{k} {metrics[k]:.6g}" for k in AGG_KEYS))
+    if metrics["completed"] != 4:
+        _fail(f"launch.serve completed {metrics['completed']} of 4")
+    return total
+
+
+def phase_slot(torch, paged_step_ms, n_requests=N_REQUESTS):
+    """The slot executor: Cronus through ``ServeSpec(executor="real")``
+    at full width and depth, then slot against paged at 2 layers on the
+    same weights and trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import hardware
+    from repro_torch.serving.api import (ServeSpec, paged_executor_factory,
+                                         slot_executor_factory)
+    from repro_torch.serving.simulator import build_system
+    cfg = get_config("llama3-8b")
+    model, _ = _full_model(torch, cfg)
+    spec = ServeSpec(approach="cronus", executor="real", max_slots=SLOTS,
+                     s_kv=S_KV)
+    torch.cuda.reset_peak_memory_stats()
+    # the same CPI decode step as phase 3 runs under the profiler
+    service, recs, res, wall, launches = _serve(
+        torch, spec, model, n_requests, profile={"cpi": PROFILE["cpi"]})
+    cpi, step_ms = _report(torch, f"[phase 6] cronus slot executor "
+                           f"(max_slots {SLOTS}, s_kv {S_KV})", recs, res,
+                           wall, n_requests)
+    paged = ("not run" if paged_step_ms is None
+             else f"{paged_step_ms:.3f} ms")
+    log(f"[phase 6] CPI decode step: slot {step_ms:.3f} ms, paged (phase 3, "
+        f"16 slots, same requests) {paged}; kernel launches in the slot "
+        f"run {launches}")
+    for p in cpi.profiles:
+        _report_profile(p, statistics.median(cpi.step_s), "CPI decode step",
+                        tag="[phase 6]")
+    del service, recs, cpi, model
+    _free(torch)
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model2, _ = _full_model(torch, cfg2)
+    runs = {}
+    for kind in ("real", "paged"):
+        if kind == "real":
+            factory = slot_executor_factory(cfg2, model2, device="cuda",
+                                            max_slots=SLOTS, s_kv=S_KV)
+        else:
+            factory = paged_executor_factory(cfg2, model2, device="cuda")
+        # the same KV budget for both, so both admit the same batches
+        system = build_system("cronus", cfg2, hardware.A100, hardware.A10,
+                              executor_factory=factory, executor=kind,
+                              block_size=16, max_batched_tokens=512,
+                              max_slots=SLOTS,
+                              num_kv_blocks=SLOTS * -(-S_KV // 16))
+        recs = [Recorder(torch, role, e, keep_logits=True)
+                for role, e in (("ppi", system.ppi), ("cpi", system.cpi))]
+        res = system.run(make_requests(n_requests, cfg2.vocab_size))
+        if res["completed"] != n_requests:
+            _fail(f"phase 6 {kind} run completed {res['completed']}/"
+                  f"{n_requests}")
+        runs[kind] = {k: v for rec in recs for k, v in rec.rows.items()}
+        del system, recs, factory
+        _free(torch)
+    _compare_rows(runs["real"], runs["paged"], "[phase 6] 2-layer "
+                  "full-width slot executor vs paged executor")
 
 
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
@@ -840,7 +1063,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -855,12 +1078,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    smi = phase_env_build(torch)
+    phase_env_build(torch)
     rows = phase_kernels(torch) if 2 in phases else {}
-    launches, per_launch = (phase_main_path(torch) if 3 in phases
-                            else ({}, {}))
+    launches, per_launch, step_ms = (phase_main_path(torch) if 3 in phases
+                                     else ({}, {}, None))
     if 4 in phases:
         phase_parity(torch)
+    if 5 in phases:
+        for name, n in phase_surface(torch).items():
+            launches[name] = launches.get(name, 0) + n
+    if 6 in phases:
+        phase_slot(torch, step_ms)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -872,7 +1100,6 @@ def main() -> int:
         row.update(rows.get(name, {}))
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
-    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

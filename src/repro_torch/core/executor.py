@@ -1,22 +1,32 @@
 """Executors: the compute backends of the serving engines.
 
-``PagedRealExecutor`` runs real PyTorch forwards over a block-pool KV
-layout driven by the engine's live :class:`~repro_torch.kvcache.BlockAllocator`
+``RealExecutor`` runs real PyTorch forwards on a slot-based cache (one
+``[s_kv]`` row of K/V per slot; functional correctness at reduced scale).
+``PagedRealExecutor`` runs the same math over a block-pool KV layout
+driven by the engine's live :class:`~repro_torch.kvcache.BlockAllocator`
 tables — attention reads exactly the blocks a request owns (through
 :mod:`repro_torch.kernels.ops`), so prefix-cache hits, copy-on-write
 shares and Cronus PPI→CPI handoffs work on real compute.
 ``NullExecutor`` skips compute entirely (scheduling + timing studies at
-paper scale). Both sit behind the same interface, so the scheduler /
-balancer code is identical. The slot-cache ``RealExecutor`` of the JAX
-package is still to be ported.
+paper scale). All sit behind the same interface, so the scheduler /
+balancer code is identical.
+
+Slot invariant: validity of a cache position is defined by the host's
+``kv_positions`` alone, which only ever advance for the slots that take
+part in a forward; freed slots reset their position row to -1. The JAX
+package runs every slot's row in each forward (fixed jit shapes) and lets
+the rows that sit out write garbage beyond their valid region; here a
+forward runs only the rows of the slots that take part, so the others
+are neither read nor written.
 
 The paged pool's invariant: padded/inactive lanes write into a dedicated
 trash page that no block table references, and attention masks by
 ``context_lens`` / kv positions, never by content.
 
-Unlike the JAX package, whose jitted ``scan`` returned new pool arrays,
-the pools here are updated in place (``index_copy_`` and slice
-assignment): a full-width pool is gigabytes and is never copied.
+Unlike the JAX package, whose jitted forwards returned new cache arrays,
+the slot cache and the pools are updated in place (indexed stores,
+``index_copy_`` and slice assignment): at full width they are gigabytes
+and are never copied.
 """
 from __future__ import annotations
 
@@ -117,6 +127,145 @@ class NullExecutor:
 
     def reset_slot(self, slot):
         """Nothing to scrub."""
+
+
+class RealExecutor:
+    """PyTorch execution over a slot-based unified cache with
+    host-managed positions. A prefill chunk runs at its own length: the
+    JAX package pads it to a power-of-two bucket (or to ``chunk_pad``) to
+    keep jit shapes fixed, and its padded tokens' K/V land on ring
+    positions that can still be valid once ``ctx + bucket > s_kv``.
+    Eager PyTorch recompiles nothing, so the port writes only the real
+    tokens; ``compile_stats`` still counts the JAX package's buckets.
+
+    Supported model families: dense-attention stacks ("mlp" kind), the
+    only ones :class:`~repro_torch.models.transformer.DecoderModel` lays
+    out so far (the SSM-state restore and the cross-KV install of the
+    JAX executor come with those families).
+    """
+
+    def __init__(self, model, params=None, *, max_slots: int, s_kv: int,
+                 chunk_pad: Optional[int] = None):
+        self.model = model
+        self.params = model.params if params is None else params
+        self.cfg = model.cfg
+        self.max_slots = max_slots
+        self.s_kv = s_kv
+        # the JAX package's fixed chunk width (bucket accounting only)
+        self.chunk_pad = chunk_pad
+        self.cache = model.init_cache(max_slots, s_kv)
+        self.device = self.cache["pos"].device
+        self.pos = np.full((max_slots, s_kv), -1, np.int32)   # host positions
+        self.lens = np.zeros((max_slots,), np.int32)          # host lengths
+        self.buckets = BucketCache()
+        # host copy of the newest logits block (prefill: [1, V] when the
+        # prompt completes; decode: [n, V] in slot order), for parity checks
+        self.last_logits: Optional[np.ndarray] = None
+
+    def compile_stats(self) -> Dict[str, int]:
+        """Distinct bucketed dispatch shapes per kind (see BucketCache)."""
+        return self.buckets.compile_stats()
+
+    # ------------------------------------------------------------------
+    def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
+
+    def _run(self, slots, inputs: np.ndarray,
+             positions: np.ndarray) -> torch.Tensor:
+        """Forward the rows of ``slots`` (inputs/positions ``[n, cb]``)
+        against the cache; returns logits ``[n, cb, V]``."""
+        rows = np.asarray(slots, np.int64)
+        logits, self.cache, _ = self.model.forward(
+            self.params, self._tensor(inputs, torch.long), self.cache,
+            self._tensor(self.lens[rows]),
+            positions=self._tensor(positions),
+            kv_positions=self._tensor(self.pos[rows]),
+            rows=self._tensor(rows, torch.long))
+        return logits
+
+    @torch.no_grad()
+    def prefill_chunk(self, slot: int, tokens: np.ndarray, ctx_len: int,
+                      completes: bool, enc_emb=None) -> Optional[int]:
+        """Run one prefill chunk for ``slot``. Returns the first token if
+        the prompt completes with this chunk."""
+        c = len(tokens)
+        if self.chunk_pad and c <= self.chunk_pad:
+            cb = self.chunk_pad
+        else:
+            cb = self.buckets.bucket(c)
+        self.buckets.record("prefill", cb)
+        positions = ctx_len + np.arange(c, dtype=np.int32)
+        # mark the new positions valid for this slot (host side)
+        self.pos[slot, positions % self.s_kv] = positions
+        logits = self._run([slot], np.asarray(tokens, np.int32)[None],
+                           positions[None])
+        self.lens[slot] = ctx_len + c
+        if not completes:
+            return None
+        self.last_logits = logits[:, c - 1].float().cpu().numpy()
+        return robust_greedy(self.last_logits[0])
+
+    @torch.no_grad()
+    def decode(self, slot_tokens: Dict[int, int],
+               slot_lens: Dict[int, int]) -> Dict[int, int]:
+        """One decode step for the given slots. Returns slot -> next
+        token."""
+        self.buckets.record("decode", 1)
+        slots = sorted(slot_tokens)
+        inputs = np.zeros((len(slots), 1), np.int32)
+        positions = np.zeros((len(slots), 1), np.int32)
+        for i, s in enumerate(slots):
+            inputs[i, 0] = slot_tokens[s]
+            positions[i, 0] = slot_lens[s]
+            self.pos[s, slot_lens[s] % self.s_kv] = slot_lens[s]
+        logits = self._run(slots, inputs, positions)
+        self.last_logits = logits[:, 0].float().cpu().numpy()
+        out = {}
+        for i, s in enumerate(slots):
+            out[s] = robust_greedy(self.last_logits[i])
+            self.lens[s] = slot_lens[s] + 1
+        return out
+
+    # ------------------------------------------------------------------
+    # KV handoff. The attention caches carry a sequence axis at dim 2 of
+    # each [L, slot, S_kv, ...] leaf; only the first ``upto`` positions
+    # are valid at extract time, so only they travel — the PPI->CPI
+    # payload is sized by the partial prefill, not by the slot width.
+    _SEQ_KEYS = frozenset(("k", "v", "ckv", "kpe"))
+
+    def extract_kv(self, slot: int, upto: int):
+        """Pull one slot's cache slices (the PPI->CPI payload): a copy on
+        the device, since the PPI reuses the slot before the simulated
+        transfer delivers it."""
+        def take(key, a):
+            return (a[:, slot, :upto] if key in self._SEQ_KEYS
+                    else a[:, slot]).clone()
+
+        return {"stack": {k: take(k, a)
+                          for k, a in self.cache["stack"].items()},
+                "_upto": upto}
+
+    @torch.no_grad()
+    def inject_kv(self, slot: int, payload, upto: int):
+        """Install a transferred payload into ``slot``, in place, and mark
+        ``[0, upto)`` valid."""
+        for k, dst in self.cache["stack"].items():
+            src = payload["stack"][k].to(device=self.device,
+                                         dtype=dst.dtype)
+            if k in self._SEQ_KEYS:
+                dst[:, slot, :src.shape[1]] = src
+            else:
+                dst[:, slot] = src
+        self.pos[slot, :] = -1
+        self.pos[slot, :upto] = np.arange(upto)
+        self.lens[slot] = upto
+
+    def reset_slot(self, slot: int):
+        """Forget the slot's positions: its cache rows become garbage that
+        no position marks valid."""
+        self.pos[slot, :] = -1
+        self.lens[slot] = 0
 
 
 class PagedRealExecutor:

@@ -1,2 +1,3 @@
-"""Serving layer of the port: device models, system builders and the
-real-compute executor factory."""
+"""Serving layer of the port: device models, system builders, traces, the
+online API (``ServeSpec``/``InferenceService``) and the real-compute
+executor factories."""

@@ -1,21 +1,20 @@
-"""Serving systems: the Cronus pair and the disaggregated baselines.
+"""Serving systems: the Cronus pair, the disaggregated baselines, DP and PP.
 
 The same scheduler/balancer/engine code drives ``NullExecutor`` (no tensor
 compute, simulated clocks from the roofline device models) and the real
-paged executor (:func:`repro_torch.serving.api.paged_executor_factory`).
-The clocks stay simulated on real compute, as in the JAX package.
+executors (:mod:`repro_torch.serving.api`). The clocks stay simulated on
+real compute, as in the JAX package.
 """
 from __future__ import annotations
 
 from repro_torch.core.balancer import Balancer
+from repro_torch.core.baselines import build_dp, build_pp
 from repro_torch.core.cronus import build_cronus, build_disaggregated
 from repro_torch.core.executor import NullExecutor
 from repro_torch.core.predictor import profile_chunked, profile_prefill
 from repro_torch.serving.hardware import DeviceModel, DeviceSpec
 
-# the approaches this package builds; dp and pp (core/baselines.py of the
-# JAX package) are still to be ported
-APPROACHES = ("cronus", "disagg_hl", "disagg_lh")
+APPROACHES = ("cronus", "dp", "pp", "disagg_hl", "disagg_lh")
 
 
 def _null_factory(role: str):
@@ -28,7 +27,7 @@ def build_system(approach: str, cfg, hi_spec: DeviceSpec, lo_spec: DeviceSpec,
                  sched_policy: str = "fcfs", prefix_cache: bool = False,
                  num_kv_blocks=None, host_kv_blocks: int = 0,
                  executor: str = "null"):
-    """Build one approach as a runnable system facade."""
+    """Build one of the five approaches as a runnable system facade."""
     executor_factory = executor_factory or _null_factory
     hi = DeviceModel(hi_spec, cfg)
     lo = DeviceModel(lo_spec, cfg)
@@ -46,8 +45,9 @@ def build_system(approach: str, cfg, hi_spec: DeviceSpec, lo_spec: DeviceSpec,
     if approach == "disagg_hl":   # prefill on high-end, decode on low-end
         return build_disaggregated(cfg, hi, lo,
                                    max_batched_tokens=max_batched_tokens, **kw)
-    if approach in ("dp", "pp"):
-        raise NotImplementedError(
-            f"approach {approach!r}: the dp/pp baselines (core/baselines.py "
-            "of the JAX package) are not ported yet")
+    if approach == "dp":
+        return build_dp(cfg, hi, lo, **kw)
+    if approach == "pp":
+        return build_pp(cfg, hi_spec, lo_spec, **kw)
     raise KeyError(approach)
+

@@ -8,6 +8,7 @@ card. The entry points default to the card and raise without one.
 import ast
 import dataclasses
 import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -83,21 +84,48 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path, capsys,
 
 
 def test_entry_points_default_to_the_card():
-    """The executor factory runs on CUDA unless asked for the CPU; the
-    executor refuses CUDA kernels for a model on the CPU."""
+    """The executor factories, ``ServeSpec.build`` and the launcher run
+    on CUDA unless asked for the CPU: without a card they raise or exit
+    non-zero, and with ``device="cpu"`` / ``--device cpu`` they run. The
+    paged executor refuses CUDA kernels for a model on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.core.executor import PagedRealExecutor
-    from repro_torch.serving.api import paged_executor_factory
+    from repro_torch.serving.api import (ServeSpec, paged_executor_factory,
+                                         slot_executor_factory)
+    from repro_torch.serving.trace import make_trace
     cfg = get_config("llama3-8b", smoke=True)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         paged_executor_factory(cfg)
-    factory = paged_executor_factory(cfg, device="cpu", seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        slot_executor_factory(cfg, max_slots=2, s_kv=64)
+    factory = paged_executor_factory(cfg, device="cpu")
     ex = factory("ppi")
     assert ex.device.type == "cpu" and ex.use_kernels is False
     with pytest.raises(ValueError, match="CUDA"):
         PagedRealExecutor(ex.model, use_kernels=True)
+
+    specs = [ServeSpec(smoke=True, executor=e, s_kv=64, max_slots=4,
+                       block_size=4) for e in ("paged", "real")]
+    for spec in specs:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            spec.build()
+        res = spec.build(device="cpu").run(
+            make_trace(3, seed=0, vocab_size=cfg.vocab_size, scale=0.01))
+        assert res["completed"] == 3
+    assert ServeSpec().build().run(make_trace(3, seed=0))["completed"] == 3
+
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+            "--executor", "paged", "--n-requests", "2", "--scale", "0.01"]
+    run = subprocess.run(argv, env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert run.returncode != 0 and "device='cpu'" in run.stderr
+    assert '"completed"' not in run.stdout
+    run = subprocess.run(argv + ["--device", "cpu"], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert json.loads(run.stdout)["completed"] == 2
 
 
 def test_factory_refuses_weights_on_another_device():
@@ -131,13 +159,3 @@ def test_factory_refuses_weights_on_another_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             paged_executor_factory(cfg, params=cpu_params)
-
-
-def test_dp_and_pp_are_not_ported_yet():
-    from repro_torch.configs import get_config
-    from repro_torch.serving import hardware
-    from repro_torch.serving.simulator import build_system
-    cfg = get_config("llama3-8b")
-    for approach in ("dp", "pp"):
-        with pytest.raises(NotImplementedError, match="baselines"):
-            build_system(approach, cfg, hardware.A100, hardware.A10)

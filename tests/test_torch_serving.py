@@ -84,9 +84,17 @@ def _reqs(cls, prompts, staggered):
     return reqs
 
 
+def _engines(system):
+    if hasattr(system, "engines"):               # DPSystem
+        return system.engines
+    if hasattr(system, "engine"):                # PPSystem
+        return [system.engine]
+    return [system.ppi, system.cpi]              # CronusSystem
+
+
 def _collect(system, n):
     toks, parts = {}, {}
-    for e in (system.ppi, system.cpi):
+    for e in _engines(system):
         for r in e.finished:
             toks.setdefault(r.req_id, list(r.generated))
             parts.setdefault(r.req_id, r.partial_len)
