@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -14,8 +14,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    tensor cores and the decode kernel loads 16-byte vectors;
 2. each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the full-width llama3-8b main path, in fp32 (TF32 off) and
-   bf16: max abs error beside its tolerance, kernel / plain / library
-   times from CUDA events, and the least time the card could take;
+   bf16, and at qwen2-7b's (H 28, Kv 4) in bf16: max abs error beside its
+   tolerance, kernel / plain / library times from CUDA events, and the
+   least time the card could take; before them, a sweep of edge shapes
+   (the paged dense families' heads at D = 128, G = 7, 8 and 12,
+   included);
 3. the main path: a Cronus PPI->CPI pair serving llama3-8b at full width
    (bf16, weights drawn on the card from seed 0) over the paged KV pool;
    every kernel's launch count is set to 0 just before the run and read
@@ -37,10 +40,22 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 6. the slot executor: Cronus through ``ServeSpec(executor="real")`` at
    full width and depth on the same requests (its CPI decode-step ms
    beside the paged executor's from phase 3), then slot against paged at
-   2 layers on the same weights and trace, held to phase 4's rule.
+   2 layers on the same weights and trace, held to phase 4's rule;
+7. the dense families at full width, weights drawn on the card from
+   seed 0 in bf16, phase 3's requests, Cronus, kernel counts set to 0
+   before each run: (7a) qwen2-7b, the paper's second model, at full
+   depth through ``ServeSpec(arch="qwen2-7b", executor="paged")
+   .build(device="cuda")`` with both kernels launched, then phase 4's
+   parity at 2 layers and the launcher with ``--arch qwen2-7b`` in a
+   subprocess; (7b) qwen3-32b (qk-norm) cut to 8 layers on the paged
+   executor, then phase 4's parity at 2 layers; (7c) gemma3-27b (5 local layers of window 1024, 1 global)
+   cut to 6 layers and (7d) qwen2-vl-72b (M-RoPE) cut to 4 layers on the
+   slot executor, which the JAX package serves them on (its paged
+   executor refuses both, as does the port's).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches`` counts phases 3 and 5); the last line is ``{"ok": true,
+(``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
+phase 2's reading at qwen2-7b's heads); the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device the script exits with code 1
 and prints no result.
 """
@@ -51,6 +66,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -101,6 +117,11 @@ LOGIT_TOL = 0.125
 
 # requests served by phases 3 and 4
 N_REQUESTS = 8
+
+# (H, Kv) at D = 128 of the dense families served on the paged path:
+# qwen2-7b and deepseek-coder-33b (G = 7), qwen3-32b (G = 8),
+# starcoder2-15b (G = 12)
+FAMILY_GQA = ((28, 4), (56, 8), (64, 8), (48, 4))
 
 
 def log(*args):
@@ -250,10 +271,11 @@ def _time_ms(torch, fn, flush, iters=20):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def _decode_inputs(torch, dtype, rng):
-    """Full-width decode step: B=8, H=32, Kv=8, D=128, page=16, ragged
-    context up to 2048 with one ctx=0 lane, trash-padded tables."""
-    b, h, kvh, d, page, max_pages = 8, 32, 8, 128, 16, 128
+def _decode_inputs(torch, dtype, rng, h=32, kvh=8):
+    """Full-width decode step: B=8, H=32, Kv=8 (llama3-8b; qwen2-7b: 28 /
+    4), D=128, page=16, ragged context up to 2048 with one ctx=0 lane,
+    trash-padded tables."""
+    b, d, page, max_pages = 8, 128, 16, 128
     ctx = np.array([2048, 0, 1, 17, 300, 1000, 1537, 777], np.int32)
     n_pages = b * max_pages
     trash = n_pages
@@ -280,10 +302,11 @@ def _decode_inputs(torch, dtype, rng):
     return args, nbytes, flops
 
 
-def _prefill_inputs(torch, dtype, rng, window):
-    """Full-width prefill chunk: B=1, C=512, H=32, Kv=8, D=128, S=2048,
-    the last chunk of a 2048-token prompt."""
-    b, c, h, kvh, d, s = 1, 512, 32, 8, 128, 2048
+def _prefill_inputs(torch, dtype, rng, window, h=32, kvh=8):
+    """Full-width prefill chunk: B=1, C=512, H=32, Kv=8 (llama3-8b;
+    qwen2-7b: 28 / 4), D=128, S=2048, the last chunk of a 2048-token
+    prompt."""
+    b, c, d, s = 1, 512, 128, 2048
     q_pos = (s - c + np.arange(c, dtype=np.int32))[None]
     kv_pos = np.arange(s, dtype=np.int32)[None]
     dev = "cuda"
@@ -316,8 +339,11 @@ def _sweep(torch):
     several splits with a ragged last split, contexts shorter than one
     split, pages of 4/8/16 and G of 1, 2, 3, 4, 8 and 16; prefill tiles the
     skip rule drops (a padded C tail like the executor's buckets, a
-    kv_pos = -1 tail, window 256). Returns the failures: an element
-    outside its tolerance."""
+    kv_pos = -1 tail, window 256); and the heads of the dense families on
+    the paged path, at D = 128: H / Kv = 28 / 4 and 56 / 8 (G = 7: the
+    group does not divide the 128-row prefill tile), 64 / 8 (G = 8,
+    qwen3-32b's) and 48 / 4 (G = 12: two decode head passes). Returns the
+    failures: an element outside its tolerance."""
     from repro_torch.kernels import (chunked_prefill_attention, ops,
                                      paged_attention)
     worst, ratio, where, n = {}, {}, {}, 0
@@ -369,6 +395,15 @@ def _sweep(torch):
             for window in (0, 256):
                 prefill(q_pos, kv_pos, h, kv, d, window)
                 n += 1
+        # G = 7 (18 queries in 126 of a tile's 128 rows), 8 and 12 (10 in
+        # 120) at D = 128, C = 512, S = 2048: 400 real queries after 1500
+        # cached tokens, so a padded C tail and a kv_pos = -1 tail
+        q_pos = np.where(np.arange(512) < 400, 1500 + np.arange(512), -1)[None]
+        kv_pos = np.where(np.arange(2048) < 1900, np.arange(2048), -1)[None]
+        for h, kv in FAMILY_GQA:
+            for window in (0, 256):
+                prefill(q_pos, kv_pos, h, kv, 128, window)
+                n += 1
 
         for b, h, kv, d, pages, page, maxp, cl in [
                 (2, 8, 2, 64, 16, 8, 4, None), (3, 4, 4, 32, 8, 16, 3, None),
@@ -381,7 +416,11 @@ def _sweep(torch):
                 (4, 32, 8, 128, 600, 4, 200, [800, 799, 3, 0]),
                 (3, 64, 8, 32, 200, 16, 40, [640, 300, 90]),
                 (2, 24, 8, 64, 200, 16, 40, [600, 31]),        # G = 3
-                (2, 32, 2, 128, 200, 16, 40, [640, 257])]:     # G = 16
+                (2, 32, 2, 128, 200, 16, 40, [640, 257])] + [  # G = 16
+                # G = 7, 8 and 12: several splits, one shorter than a
+                # split, and ctx = 0
+                (3, h, kv, 128, 400, 16, 64, [1000, 100, 0])
+                for h, kv in FAMILY_GQA]:
             bt = rng.integers(0, pages, (b, maxp)).astype(np.int32)
             if cl is None:  # full table, ctx=0, past the table, then ragged
                 cl = np.concatenate([[maxp * page, 0, maxp * page + 5],
@@ -403,79 +442,108 @@ def _sweep(torch):
             for k, r in ratio.items() if not r <= 1.0]
 
 
+def _decode_case(torch, dname, args, nbytes, flops, flush, tag):
+    """Decode kernel vs plain version on ``args``: checked, timed, printed;
+    returns its JSON row and whether it disagrees."""
+    from repro_torch.kernels import ops, paged_attention
+    got = paged_attention.paged_decode_attention(*args)
+    want = ops.paged_decode_attention(*args, use_kernels=False)
+    torch.cuda.synchronize()
+    err, ratio = _errors(got, want, dname)
+    zero_lane = got[1].float().abs().max().item()
+    k_ms = _time_ms(torch, lambda: paged_attention.paged_decode_attention(
+        *args), flush)
+    p_ms = _time_ms(torch, lambda: ops.paged_decode_attention(
+        *args, use_kernels=False), flush)
+    b_ms, b_by = _bound(nbytes, flops, dname)
+    log(f"[phase 2] {tag}paged_decode {dname}: max_abs_err {err:.3e} max "
+        f"err/tol {ratio:.3f} ({_tol_text(dname)}) ctx=0 lane max|out| "
+        f"{zero_lane} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+        f"library_ms none (needs a gather) bound_ms {b_ms:.4f} ({b_by})")
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    return row, not (ratio <= 1.0) or zero_lane != 0.0
+
+
+def _prefill_case(torch, dname, args, nbytes, flops, valid, window, flush,
+                  tag):
+    """Prefill kernel vs plain version on ``args``, and SDPA with the same
+    mask and GQA grouping as the library's yardstick: checked, timed,
+    printed; returns its JSON row and whether it disagrees."""
+    from repro_torch.kernels import chunked_prefill_attention, ops
+    got = chunked_prefill_attention.chunked_prefill_attention(
+        *args, window=window)
+    want = ops.chunked_prefill_attention(*args, window=window,
+                                         use_kernels=False)
+    torch.cuda.synchronize()
+    err, ratio = _errors(got, want, dname)
+    k_ms = _time_ms(
+        torch, lambda: chunked_prefill_attention
+        .chunked_prefill_attention(*args, window=window), flush)
+    p_ms = _time_ms(torch, lambda: ops.chunked_prefill_attention(
+        *args, window=window, use_kernels=False), flush)
+    q, k, v = (t.transpose(1, 2) for t in args[:3])
+    mask = valid[:, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float()
+               - want.float()).abs().max().item()
+    l_ms = _time_ms(torch, sdpa, flush)
+    b_ms, b_by = _bound(nbytes, flops, dname)
+    log(f"[phase 2] {tag}chunked_prefill {dname} window={window}: "
+        f"max_abs_err {err:.3e} max err/tol {ratio:.3f} "
+        f"({_tol_text(dname)}) kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} library_ms {l_ms:.4f} (sdpa err {lib_err:.2e}) "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+    row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=l_ms)
+    return row, not (ratio <= 1.0)
+
+
 def phase_kernels(torch):
-    """Each kernel against its plain version; returns the bf16 rows of the
-    kernels JSON line (without launches). Every check runs, and every time
-    is taken, before a failure ends the phase."""
-    from repro_torch.kernels import (chunked_prefill_attention, ops,
-                                     paged_attention)
+    """Each kernel against its plain version at llama3-8b's full-width
+    shapes (fp32 and bf16) and at qwen2-7b's (bf16); returns the bf16
+    llama3-8b rows of the kernels JSON line (without launches), each with
+    its qwen2-7b reading under ``"qwen2_7b"``. Every check runs, and every
+    time is taken, before a failure ends the phase."""
     failures = _sweep(torch)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         rng = np.random.default_rng(0)
-
-        args, nbytes, flops = _decode_inputs(torch, dtype, rng)
-        got = paged_attention.paged_decode_attention(*args)
-        want = ops.paged_decode_attention(*args, use_kernels=False)
-        torch.cuda.synchronize()
-        err, ratio = _errors(got, want, dname)
-        zero_lane = got[1].float().abs().max().item()
-        k_ms = _time_ms(torch, lambda: paged_attention.paged_decode_attention(
-            *args), flush)
-        p_ms = _time_ms(torch, lambda: ops.paged_decode_attention(
-            *args, use_kernels=False), flush)
-        b_ms, b_by = _bound(nbytes, flops, dname)
-        log(f"[phase 2] paged_decode {dname}: max_abs_err {err:.3e} max "
-            f"err/tol {ratio:.3f} ({_tol_text(dname)}) ctx=0 lane max|out| "
-            f"{zero_lane} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
-            f"library_ms none (needs a gather) bound_ms {b_ms:.4f} ({b_by})")
-        if not (ratio <= 1.0) or zero_lane != 0.0:
+        row, bad = _decode_case(torch, dname, *_decode_inputs(
+            torch, dtype, rng), flush, "")
+        if bad:
             failures.append(f"paged_decode {dname} disagrees with its plain "
                             f"version")
         if dtype == torch.bfloat16:
-            rows["paged_decode_attention"] = dict(
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
-
+            rows["paged_decode_attention"] = row
         for window in (0, 256):
-            args, nbytes, flops, valid = _prefill_inputs(torch, dtype, rng,
-                                                         window)
-            got = chunked_prefill_attention.chunked_prefill_attention(
-                *args, window=window)
-            want = ops.chunked_prefill_attention(*args, window=window,
-                                                 use_kernels=False)
-            torch.cuda.synchronize()
-            err, ratio = _errors(got, want, dname)
-            k_ms = _time_ms(
-                torch, lambda: chunked_prefill_attention
-                .chunked_prefill_attention(*args, window=window), flush)
-            p_ms = _time_ms(torch, lambda: ops.chunked_prefill_attention(
-                *args, window=window, use_kernels=False), flush)
-            # library yardstick: SDPA with the same mask and GQA grouping
-            q, k, v = (t.transpose(1, 2) for t in args[:3])
-            mask = valid[:, None]
-
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True)
-            lib_err = (sdpa().transpose(1, 2).float()
-                       - want.float()).abs().max().item()
-            l_ms = _time_ms(torch, sdpa, flush)
-            b_ms, b_by = _bound(nbytes, flops, dname)
-            log(f"[phase 2] chunked_prefill {dname} window={window}: "
-                f"max_abs_err {err:.3e} max err/tol {ratio:.3f} "
-                f"({_tol_text(dname)}) kernel_ms {k_ms:.4f} plain_ms "
-                f"{p_ms:.4f} library_ms {l_ms:.4f} (sdpa err {lib_err:.2e}) "
-                f"bound_ms {b_ms:.4f} ({b_by})")
-            if not (ratio <= 1.0):
+            row, bad = _prefill_case(torch, dname, *_prefill_inputs(
+                torch, dtype, rng, window), window, flush, "")
+            if bad:
                 failures.append(f"chunked_prefill {dname} window={window} "
                                 f"disagrees with its plain version")
             if dtype == torch.bfloat16 and window == 0:
-                rows["chunked_prefill_attention"] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=l_ms)
+                rows["chunked_prefill_attention"] = row
+    # the same contexts and chunk at qwen2-7b's heads (H 28, Kv 4: G = 7)
+    rng = np.random.default_rng(0)
+    tag = "qwen2-7b H 28 Kv 4: "
+    row, bad = _decode_case(torch, "bfloat16", *_decode_inputs(
+        torch, torch.bfloat16, rng, h=28, kvh=4), flush, tag)
+    rows["paged_decode_attention"]["qwen2_7b"] = row
+    if bad:
+        failures.append("paged_decode bfloat16 at qwen2-7b's heads "
+                        "disagrees with its plain version")
+    row, bad = _prefill_case(torch, "bfloat16", *_prefill_inputs(
+        torch, torch.bfloat16, rng, 0, h=28, kvh=4), 0, flush, tag)
+    rows["chunked_prefill_attention"]["qwen2_7b"] = row
+    if bad:
+        failures.append("chunked_prefill bfloat16 at qwen2-7b's heads "
+                        "disagrees with its plain version")
     del flush
     torch.cuda.empty_cache()
     if failures:
@@ -505,14 +573,18 @@ def make_requests(n, vocab, seed=0, output_len=32):
             for i, n_tok in enumerate(lens)]
 
 
-def build_pair(cfg, factory):
-    """The slice's Cronus pair: llama3-8b, A100 CPI + A10 PPI clocks."""
+def build_pair(cfg, factory, executor="paged"):
+    """The slice's Cronus pair, A100 CPI + A10 PPI clocks: on the paged
+    executor, 16 slots and 2048 KV blocks of 16 tokens an engine; on the
+    slot executor, ``SLOTS`` slots of ``S_KV`` positions and the same KV
+    budget in blocks."""
     from repro_torch.serving import hardware
     from repro_torch.serving.simulator import build_system
+    kw = (dict(max_slots=16, num_kv_blocks=2048) if executor == "paged"
+          else dict(max_slots=SLOTS, num_kv_blocks=SLOTS * -(-S_KV // 16)))
     return build_system("cronus", cfg, hardware.A100, hardware.A10,
-                        executor_factory=factory, executor="paged",
-                        block_size=16, max_batched_tokens=512, max_slots=16,
-                        num_kv_blocks=2048)
+                        executor_factory=factory, executor=executor,
+                        block_size=16, max_batched_tokens=512, **kw)
 
 
 # one executor call run under ``torch.profiler``: its label, its kind
@@ -635,28 +707,41 @@ class Recorder:
         return out, prof, wall
 
 
+def _counted(torch, run):
+    """Set every kernel count to 0, call ``run()`` between two
+    synchronises and read the counts; returns its result, the wall seconds
+    (host clock) and the launches per kernel."""
+    from repro_torch.kernels import chunked_prefill_attention, paged_attention
+    chunked_prefill_attention.launches = 0
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {"chunked_prefill_attention":
+                       chunked_prefill_attention.launches,
+                       "paged_decode_attention": paged_attention.launches}
+
+
 def run_trace(torch, cfg, factory, n_requests, keep_logits=False,
-              profile=None):
+              profile=None, executor="paged"):
     """Serve ``n_requests`` through a fresh pair; returns the system, the
-    per-engine recorders, the aggregate metrics and the wall seconds.
-    ``profile`` maps an engine ("ppi"/"cpi") to its Recorder's profile."""
-    system = build_pair(cfg, factory)
+    per-engine recorders, the aggregate metrics, the wall seconds, the
+    launches per kernel over the run and the requests. ``profile`` maps
+    an engine ("ppi"/"cpi") to its Recorder's profile."""
+    system = build_pair(cfg, factory, executor)
     recs = [Recorder(torch, role, e, keep_logits,
                      (profile or {}).get(role))
             for role, e in (("ppi", system.ppi), ("cpi", system.cpi))]
     reqs = make_requests(n_requests, cfg.vocab_size)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = system.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return system, recs, res, wall, reqs
+    res, wall, launches = _counted(torch, lambda: system.run(reqs))
+    return system, recs, res, wall, launches, reqs
 
 
 def phase_main_path(torch, n_requests=N_REQUESTS):
     """Full-width llama3-8b Cronus serving; returns launches per kernel."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import chunked_prefill_attention, paged_attention
     from repro_torch.serving.api import paged_executor_factory
     cfg = dataclasses.replace(get_config("llama3-8b"), dtype="bfloat16")
     t0 = time.perf_counter()
@@ -670,13 +755,8 @@ def phase_main_path(torch, n_requests=N_REQUESTS):
 
     # one CPI decode step and the PPI's first full prefill chunk run under
     # the profiler; their launches count, their times and tokens do not
-    chunked_prefill_attention.launches = 0
-    paged_attention.launches = 0
-    system, recs, res, wall, reqs = run_trace(torch, cfg, factory, n_requests,
-                                              profile=PROFILE)
-    launches = {"chunked_prefill_attention":
-                chunked_prefill_attention.launches,
-                "paged_decode_attention": paged_attention.launches}
+    system, recs, res, wall, launches, reqs = run_trace(
+        torch, cfg, factory, n_requests, profile=PROFILE)
 
     ppi, cpi = recs
     splits = [(r.req_id, r.input_len, r.partial_len) for r in reqs]
@@ -789,18 +869,19 @@ def _report_profile(p, unprofiled_s, what, top=8, tag="[phase 3]"):
             for op in KERNELS}
 
 
-def phase_parity(torch, n_requests=N_REQUESTS):
+def phase_parity(torch, n_requests=N_REQUESTS, arch="llama3-8b",
+                 tag="[phase 4]"):
     """Kernels vs plain versions on the main path, 2 layers at full width."""
     from repro_torch.configs import get_config
     from repro_torch.serving.api import paged_executor_factory
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
                               dtype="bfloat16")
     runs = {}
     for use_kernels in (True, False):
         factory = paged_executor_factory(cfg, device="cuda",
                                          use_kernels=use_kernels)
-        system, recs, res, _, _ = run_trace(torch, cfg, factory, n_requests,
-                                            keep_logits=True)
+        system, recs, res, _, _, _ = run_trace(torch, cfg, factory,
+                                               n_requests, keep_logits=True)
         if res["completed"] != n_requests:
             _fail(f"parity run completed {res['completed']}/{n_requests}")
         runs[use_kernels] = {k: v for rec in recs
@@ -808,8 +889,8 @@ def phase_parity(torch, n_requests=N_REQUESTS):
         del system, recs, factory
         _free(torch)
 
-    _compare_rows(runs[True], runs[False], "[phase 4] 2-layer full-width "
-                  "parity, kernels vs plain versions")
+    _compare_rows(runs[True], runs[False], f"{tag} {arch} 2-layer "
+                  "full-width parity, kernels vs plain versions")
 
 
 def _compare_rows(got, want, what):
@@ -866,7 +947,7 @@ LAUNCH_ARGS = ["--arch", "llama3-8b", "--approach", "cronus", "--executor",
 
 
 def _full_model(torch, cfg):
-    """llama3-8b weights drawn once on the card from seed 0."""
+    """``cfg``'s weights drawn once on the card from seed 0."""
     from repro_torch.models.transformer import DecoderModel
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -885,27 +966,20 @@ def _free(torch):
 
 def _serve(torch, spec, model, n_requests, profile=None):
     """Build ``spec`` on the card around ``model`` and serve the smoke's
-    requests through ``InferenceService.run``; every kernel count is set
-    to 0 just before the run and read just after. ``profile`` maps an
+    requests through ``InferenceService.run`` (``model=None``: the spec
+    draws the weights itself); every kernel count is set to 0 just before
+    the run and read just after. ``profile`` maps an
     engine's name to its Recorder's profile. Returns the service, a
     Recorder per engine, the metrics, the wall seconds (host clock
-    between two synchronises) and the launches."""
-    from repro_torch.kernels import chunked_prefill_attention, paged_attention
+    between two synchronises), the launches and the requests."""
+    from repro_torch.configs import get_config
     service = spec.build(model=model, device="cuda")
     recs = [Recorder(torch, e.name, e, profile=(profile or {}).get(e.name))
             for e in service.engines]
-    reqs = make_requests(n_requests, model.cfg.vocab_size)
-    chunked_prefill_attention.launches = 0
-    paged_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = service.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"chunked_prefill_attention":
-                chunked_prefill_attention.launches,
-                "paged_decode_attention": paged_attention.launches}
-    return service, recs, res, wall, launches
+    cfg = get_config(spec.arch) if model is None else model.cfg
+    reqs = make_requests(n_requests, cfg.vocab_size)
+    res, wall, launches = _counted(torch, lambda: service.run(reqs))
+    return service, recs, res, wall, launches, reqs
 
 
 def _report(torch, tag, recs, res, wall, n_requests):
@@ -947,7 +1021,7 @@ def phase_surface(torch, n_requests=N_REQUESTS):
         spec = ServeSpec(approach=approach, executor="paged", block_size=16,
                          max_slots=16, num_kv_blocks=2048)
         torch.cuda.reset_peak_memory_stats()
-        service, recs, res, wall, launches = _serve(torch, spec, model,
+        service, recs, res, wall, launches, _ = _serve(torch, spec, model,
                                                     n_requests)
         tag = f"[phase 5] {approach}"
         _report(torch, tag, recs, res, wall, n_requests)
@@ -965,22 +1039,29 @@ def phase_surface(torch, n_requests=N_REQUESTS):
     del model
     _free(torch)
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_ARGS]
+    _launcher(LAUNCH_ARGS, "[phase 5]")
+    return total
+
+
+def _launcher(args, tag, n=4):
+    """``python -m repro_torch.launch.serve args`` in a subprocess on the
+    card; it must exit 0 with ``n`` requests completed."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=600)
     secs = time.perf_counter() - t0
     if run.returncode != 0:
-        _fail(f"launch.serve exited {run.returncode}: {run.stderr[-2000:]}")
+        _fail(f"{tag} launch.serve exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
     metrics = json.loads(run.stdout)
-    log(f"[phase 5] python -m repro_torch.launch.serve "
-        f"{' '.join(LAUNCH_ARGS)}: exit 0 in {secs:.1f} s, completed "
-        f"{metrics['completed']}, simulated-clock "
+    log(f"{tag} python -m repro_torch.launch.serve {' '.join(args)}: exit 0 "
+        f"in {secs:.1f} s, completed {metrics['completed']}, "
+        f"simulated-clock "
         + ", ".join(f"{k} {metrics[k]:.6g}" for k in AGG_KEYS))
-    if metrics["completed"] != 4:
-        _fail(f"launch.serve completed {metrics['completed']} of 4")
-    return total
+    if metrics["completed"] != n:
+        _fail(f"{tag} launch.serve completed {metrics['completed']} of {n}")
 
 
 def phase_slot(torch, paged_step_ms, n_requests=N_REQUESTS):
@@ -998,7 +1079,7 @@ def phase_slot(torch, paged_step_ms, n_requests=N_REQUESTS):
                      s_kv=S_KV)
     torch.cuda.reset_peak_memory_stats()
     # the same CPI decode step as phase 3 runs under the profiler
-    service, recs, res, wall, launches = _serve(
+    service, recs, res, wall, launches, _ = _serve(
         torch, spec, model, n_requests, profile={"cpi": PROFILE["cpi"]})
     cpi, step_ms = _report(torch, f"[phase 6] cronus slot executor "
                            f"(max_slots {SLOTS}, s_kv {S_KV})", recs, res,
@@ -1042,6 +1123,133 @@ def phase_slot(torch, paged_step_ms, n_requests=N_REQUESTS):
                   "full-width slot executor vs paged executor")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the dense families
+# ---------------------------------------------------------------------------
+
+# (run, arch, layers kept or None for full depth, executor); widths are
+# never cut
+FAMILY_RUNS = (
+    ("7b", "qwen3-32b", 8, "paged"),      # qk-norm on the paged path
+    ("7c", "gemma3-27b", 6, "real"),      # 5 local (window 1024) : 1 global
+    ("7d", "qwen2-vl-72b", 4, "real"),    # M-RoPE (16, 24, 24), text only
+)
+# the launcher run of phase 7a
+LAUNCH_ARGS_7A = ["--arch", "qwen2-7b", "--approach", "cronus", "--executor",
+                  "paged", "--num-kv-blocks", "2048", "--n-requests", "4",
+                  "--scale", "0.02", "--device", "cuda"]
+
+
+def _describe(cfg, full):
+    """One line of a config's shape and its depth cut, if any."""
+    cut = ("full depth" if cfg.n_layers == full.n_layers else
+           f"depth cut {full.n_layers} -> {cfg.n_layers} layers (widths "
+           f"kept)")
+    extra = []
+    if cfg.qk_norm:
+        extra.append("qk-norm")
+    if cfg.window_size:
+        extra.append("windows " + str([cfg.layer_window(i)
+                                       for i in range(cfg.n_layers)]))
+    if cfg.mrope_sections:
+        extra.append(f"M-RoPE {cfg.mrope_sections}")
+    from repro_torch.models.transformer import param_shapes
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else math.prod(v)
+                   for v in tree.values())
+    n_params = count(param_shapes(cfg))      # what lies on the card
+    return (f"{cfg.name}: {cfg.n_layers} layers ({cut}) d_model "
+            f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} (G "
+            f"{cfg.n_heads // cfg.n_kv_heads}) head_dim {cfg.head_dim} d_ff "
+            f"{cfg.d_ff} vocab {cfg.vocab_size} {cfg.dtype}"
+            + (", " + ", ".join(extra) if extra else "")
+            + f"; {n_params / 1e9:.2f} B parameters")
+
+
+def _family_report(torch, tag, recs, res, wall, launches, reqs, executor,
+                   n_requests):
+    """Phase 7's lines of one served run; fails unless every request
+    completed and, on the paged path, both kernels launched on the split
+    Cronus pair."""
+    _report(torch, tag, recs, res, wall, n_requests)
+    splits = [(r.input_len, r.partial_len) for r in reqs]
+    log(f"{tag}: launches {launches}; (input_len, partial_len): {splits}")
+    if executor != "paged":
+        return
+    if min(launches.values()) == 0:
+        _fail(f"{tag}: a kernel of the path never launched: {launches}")
+    if not any(0 < p < n for n, p in splits):
+        _fail(f"{tag}: no request was split between PPI and CPI")
+
+
+def phase_families(torch, n_requests=N_REQUESTS):
+    """The dense families at full width. 7a: qwen2-7b at full depth
+    through ``ServeSpec(arch="qwen2-7b", executor="paged").build()``, a
+    2-layer kernels-vs-plain parity run and the launcher; 7b-7d: the
+    qk-norm, sliding-window and M-RoPE families at a cut depth on the
+    executor the JAX package serves them on, each paged one followed by
+    its 2-layer parity run. Returns the launches per kernel over the
+    paged runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import PagedRealExecutor
+    from repro_torch.serving.api import (ServeSpec, paged_executor_factory,
+                                         slot_executor_factory)
+    total = dict.fromkeys(KERNELS, 0)
+
+    cfg = get_config("qwen2-7b")
+    log(f"[phase 7a] {_describe(cfg, cfg)}")
+    spec = ServeSpec(arch="qwen2-7b", approach="cronus", executor="paged",
+                     block_size=16, max_slots=16, num_kv_blocks=2048)
+    torch.cuda.reset_peak_memory_stats()
+    service, recs, res, wall, launches, reqs = _serve(torch, spec, None,
+                                                      n_requests)
+    _family_report(torch, "[phase 7a] cronus paged (ServeSpec.build)", recs,
+                   res, wall, launches, reqs, "paged", n_requests)
+    for name in KERNELS:
+        total[name] += launches[name]
+    del service, recs, reqs
+    _free(torch)
+    phase_parity(torch, n_requests, arch="qwen2-7b", tag="[phase 7a]")
+    _launcher(LAUNCH_ARGS_7A, "[phase 7a]")
+
+    for run, arch, layers, executor in FAMILY_RUNS:
+        tag = f"[phase {run}]"
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        model, secs = _full_model(torch, cfg)
+        log(f"{tag} {_describe(cfg, full)}; weights drawn on the card in "
+            f"{secs:.2f} s")
+        if executor == "paged":
+            factory = paged_executor_factory(cfg, model, device="cuda")
+        else:
+            try:
+                PagedRealExecutor(model)
+            except NotImplementedError as e:
+                log(f"{tag} PagedRealExecutor refuses it, as the JAX "
+                    f"package's does: {e}")
+            else:
+                _fail(f"{tag} PagedRealExecutor accepted {cfg.name}")
+            factory = slot_executor_factory(cfg, model, device="cuda",
+                                            max_slots=SLOTS, s_kv=S_KV)
+        torch.cuda.reset_peak_memory_stats()
+        system, recs, res, wall, launches, reqs = run_trace(
+            torch, cfg, factory, n_requests, executor=executor)
+        what = ("paged" if executor == "paged"
+                else f"slot executor ({SLOTS} slots x {S_KV} positions)")
+        _family_report(torch, f"{tag} cronus {what}", recs, res, wall,
+                       launches, reqs, executor, n_requests)
+        del system, recs, factory, model
+        _free(torch)
+        if executor == "paged":
+            for name in KERNELS:
+                total[name] += launches[name]
+            # the kernels against their plain versions at this family's
+            # heads, 2 layers at full width
+            phase_parity(torch, n_requests, arch=arch, tag=tag)
+    return total
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -1063,7 +1271,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1078,19 +1286,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    phase_env_build(torch)
-    rows = phase_kernels(torch) if 2 in phases else {}
-    launches, per_launch, step_ms = (phase_main_path(torch) if 3 in phases
-                                     else ({}, {}, None))
+    secs = {}           # phase -> wall seconds
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed(1, phase_env_build, torch)
+    rows = timed(2, phase_kernels, torch) if 2 in phases else {}
+    launches, per_launch, step_ms = (timed(3, phase_main_path, torch)
+                                     if 3 in phases else ({}, {}, None))
     if 4 in phases:
-        phase_parity(torch)
+        timed(4, phase_parity, torch)
     if 5 in phases:
-        for name, n in phase_surface(torch).items():
+        for name, n in timed(5, phase_surface, torch).items():
             launches[name] = launches.get(name, 0) + n
     if 6 in phases:
-        phase_slot(torch, step_ms)
+        timed(6, phase_slot, torch, step_ms)
+    if 7 in phases:
+        for name, n in timed(7, phase_families, torch).items():
+            launches[name] = launches.get(name, 0) + n
     log(f"[done] phases {sorted(phases)} passed in "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -207,10 +207,20 @@ INPUT_SHAPES = {
 # Registry
 # ---------------------------------------------------------------------------
 
-# The port serves one architecture so far; the JAX package's registry has
-# the others, which come over with the model families that need them.
 ARCH_IDS = (
+    "whisper-base",
+    "mamba2-780m",
+    "kimi-k2-1t-a32b",
+    "deepseek-coder-33b",
+    "deepseek-v2-236b",
+    "starcoder2-15b",
+    "qwen3-32b",
+    "gemma3-27b",
+    "hymba-1.5b",
+    "qwen2-vl-72b",
+    # the paper's own eval models
     "llama3-8b",
+    "qwen2-7b",
 )
 
 

@@ -138,9 +138,9 @@ class RealExecutor:
     Eager PyTorch recompiles nothing, so the port writes only the real
     tokens; ``compile_stats`` still counts the JAX package's buckets.
 
-    Supported model families: dense-attention stacks ("mlp" kind), the
-    only ones :class:`~repro_torch.models.transformer.DecoderModel` lays
-    out so far (the SSM-state restore and the cross-KV install of the
+    Supported model families: dense-attention stacks ("mlp" kind,
+    sliding windows, qk-norm and M-RoPE included), the only ones
+    :class:`~repro_torch.models.transformer.DecoderModel` lays out so far (the SSM-state restore and the cross-KV install of the
     JAX executor come with those families).
     """
 
@@ -298,8 +298,10 @@ class PagedRealExecutor:
     ``use_kernels=False`` on CUDA runs the plain versions, for parity
     checks that ask for them.
 
-    Supported model families: dense-attention stacks ("mlp" kind, e.g.
-    llama3) without sliding windows.
+    Supported model families: dense-attention stacks ("mlp" kind: llama3,
+    qwen2, qwen3 with qk-norm, deepseek-coder, starcoder2) without
+    sliding windows or embedding input; gemma3 and qwen2-vl run on
+    :class:`RealExecutor`.
     """
 
     # Pool rows are materialized for real — refuse the simulated device
@@ -314,15 +316,15 @@ class PagedRealExecutor:
         if kind != "mlp" or model.is_mla or model.n_dense:
             raise NotImplementedError(
                 f"PagedRealExecutor supports dense-attention stacks only "
-                f"(got stack kind {kind!r})")
+                f"(got stack kind {kind!r}); use executor='real'")
         if cfg.enc_dec or cfg.embeddings_input:
             raise NotImplementedError(
                 "PagedRealExecutor does not support encoder/decoder or "
-                "embedding-input models")
+                "embedding-input models; use executor='real'")
         if any(cfg.layer_window(i) for i in range(cfg.n_layers)):
             raise NotImplementedError(
                 "PagedRealExecutor does not support sliding-window layers "
-                "(paged decode attends the whole table)")
+                "(paged decode attends the whole table); use executor='real'")
         self.model = model
         self.params = model.params if params is None else params
         self.cfg = cfg

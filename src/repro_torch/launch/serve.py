@@ -45,6 +45,12 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --spec sarathi.json \
       --n-requests 500
 
+  # auto-topology planning: search the placements a rack supports for the
+  # best SLO capacity per device-cost, print the ranked plan, then serve
+  # the winner at its measured capacity:
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan "A100:1,A10:2" \
+      --workload "azure:poisson:n=40:ttft=2.0:tbt=0.1" --serve-best
+
   # real PyTorch compute: on the card (the default --device cuda), or on
   # the CPU at the reduced config:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
@@ -52,9 +58,6 @@ Examples:
       --n-requests 4 --scale 0.02
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --smoke \
       --approach cronus --n-requests 8 --real --scale 0.02 --device cpu
-
-The auto-topology planner's flags (``--plan``, ``--workload``,
-``--serve-best``) are refused: ``autotopo`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -97,13 +100,33 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="device of the real executors (--executor real or "
                          "paged): cuda (default; fails without a card) or "
                          "cpu")
-    # ---- auto-topology planner: not ported yet, refused in main()
+    # ---- auto-topology planner (repro_torch.autotopo)
     p = ap.add_argument_group(
         "auto-topology planner",
-        "not ported yet: these flags exit with an error")
-    p.add_argument("--plan", default=None, metavar="RACK")
-    p.add_argument("--workload", default=None, metavar="SPEC")
-    p.add_argument("--serve-best", action="store_true")
+        "search the rack's placement space with find_capacity probes")
+    p.add_argument("--plan", default=None, metavar="RACK",
+                   help="plan over this device inventory (e.g. "
+                        "'A100:1,A10:2') instead of serving; prints the "
+                        "ranked plan. --n-requests/--scale/--seed override "
+                        "the probe workload when given")
+    p.add_argument("--workload", default=None, metavar="SPEC",
+                   help="workload to plan for: TRACE:ARRIVAL[:key=value...]"
+                        ", e.g. 'azure:poisson:n=40:ttft=2.0:tbt=0.1' "
+                        "(default azure:poisson; only valid with --plan)")
+    p.add_argument("--serve-best", action="store_true",
+                   help="after planning, serve the top candidate open-loop "
+                        "at its measured capacity (ServeSpec.from_plan)")
+    p.add_argument("--plan-beam", type=int, default=2, metavar="W",
+                   help="beam width of the constructive search")
+    p.add_argument("--plan-max-endpoints", type=int, default=4, metavar="N",
+                   help="endpoint fan-out cap per layout")
+    p.add_argument("--plan-memo", default=None, metavar="FILE",
+                   help="evaluation-memo JSON: loaded if present, saved "
+                        "after planning — a re-run re-probes nothing")
+    p.add_argument("--plan-out", default=None, metavar="FILE",
+                   help="write the full PlanResult as JSON")
+    p.add_argument("--plan-top", type=int, default=5, metavar="K",
+                   help="ranked rows to print")
     # ---- demo / IO
     d = ap.add_argument_group("online demo / output")
     d.add_argument("--stream", action="store_true",
@@ -142,13 +165,85 @@ def _make_trace(args, spec: ServeSpec, vocab_size: int):
     return make_trace(args.n_requests, sessions=args.sessions or None, **kw)
 
 
+def _run_plan(args):
+    """The ``--plan`` mode: search, print, persist, optionally serve."""
+    import dataclasses
+    import os
+
+    from repro_torch.autotopo import EvalMemo, TopologyPlanner, parse_workload
+
+    if args.spec:
+        raise SystemExit("bad plan: --plan searches topologies itself; "
+                         "it cannot be combined with a fixed --spec file")
+    if args.autoscale or args.inventory:
+        raise SystemExit("bad plan: --plan sizes a fixed fleet up front; "
+                         "elastic --autoscale/--inventory is the other "
+                         "answer to the same question — pick one")
+    if args.stream or args.cancel_after is not None:
+        raise SystemExit("bad plan: --stream/--cancel-after demo the "
+                         "closed-loop replay path; planning (and "
+                         "--serve-best) runs open-loop")
+    if args.trace_out:
+        raise SystemExit("bad plan: --trace-out records one serving run; "
+                         "planning probes many candidate runs — trace the "
+                         "winner by serving it directly")
+    try:
+        workload = parse_workload(args.workload or "azure:poisson")
+        # the workload-group flags shrink probe traces when given
+        # explicitly (how docs_smoke/CI quick-scale a documented plan)
+        overrides = {}
+        if args.n_requests != 1000:
+            overrides["n_requests"] = args.n_requests
+        if args.scale != 1.0:
+            overrides["scale"] = args.scale
+        if args.seed != 0:
+            overrides["seed"] = args.seed
+        if overrides:
+            workload = dataclasses.replace(workload, **overrides)
+        memo = (EvalMemo.load(args.plan_memo)
+                if args.plan_memo and os.path.exists(args.plan_memo)
+                else None)
+        planner = TopologyPlanner(
+            args.plan, workload, beam_width=args.plan_beam,
+            max_endpoints=args.plan_max_endpoints, memo=memo)
+        plan = planner.plan()
+    except (ValueError, OSError, json.JSONDecodeError) as e:
+        raise SystemExit(f"bad plan: {e}")
+    print(plan.summary(args.plan_top))
+    if args.plan_memo:
+        planner.memo.save(args.plan_memo)
+    if args.plan_out:
+        with open(args.plan_out, "w") as f:
+            json.dump(plan.to_dict(), f, indent=1)
+    if not args.serve_best:
+        return
+    best = plan.best
+    if best.capacity_qps <= 0:
+        raise SystemExit("bad plan: no candidate sustained the SLO target "
+                         "— nothing to --serve-best (relax the workload "
+                         "SLOs or grow the rack)")
+    from repro_torch.serving.api import ServeSpec
+    spec = ServeSpec.from_plan(plan)
+    print(f"# serving {best.cluster} behind {best.router} at "
+          f"{best.capacity_qps:.2f} qps ({spec.arrival})")
+    driver = OpenLoopDriver(spec.build(device=args.device))
+    driver.run(workload.make_requests(best.capacity_qps))
+    metrics = driver.metrics(ttft_slo=workload.ttft_slo,
+                             tbt_slo=workload.tbt_slo, utilization=True)
+    print(json.dumps(metrics, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(metrics, f, indent=2)
+
+
 def main():
     """Parse the flags, serve the trace, print the metrics JSON."""
     args = build_arg_parser().parse_args()
-    if args.plan or args.serve_best or args.workload:
-        raise SystemExit("bad plan: --plan/--workload/--serve-best need the "
-                         "auto-topology planner (autotopo), which is not "
-                         "ported yet")
+    if args.plan:
+        return _run_plan(args)
+    if args.serve_best or args.workload:
+        raise SystemExit("bad plan: --serve-best/--workload describe the "
+                         "planning mode; they need --plan RACK")
     try:
         spec = (ServeSpec.from_json_file(args.spec) if args.spec
                 else ServeSpec.from_cli(args))

@@ -38,9 +38,13 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def param_shapes(cfg) -> Dict:
-    """Nested dict of the shapes of a dense stack's parameters, as the JAX
-    ``DecoderModel.init_params`` lays them out."""
-    if cfg.arch_type != "dense" or cfg.is_moe or cfg.hybrid or cfg.enc_dec:
+    """Nested dict of the shapes of a dense stack's parameters (dense and
+    VLM families), as the JAX ``DecoderModel.init_params`` lays them
+    out."""
+    # a VLM is a dense "mlp" stack fed by a frontend (the JAX package's
+    # ``_stack_kind``); its embedding and head are laid out all the same
+    if (cfg.arch_type not in ("dense", "vlm") or cfg.is_moe or cfg.hybrid
+            or cfg.enc_dec):
         raise NotImplementedError(
             f"{cfg.name}: only dense-attention stacks are ported so far "
             "(MoE, SSM/hybrid, MLA and encoder-decoder come with ROADMAP.md "

@@ -242,12 +242,31 @@ class ServeSpec:
     @classmethod
     def from_plan(cls, plan, rank: int = 0, rate: Optional[float] = None,
                   **overrides) -> "ServeSpec":
-        """A spec that serves a planner recommendation. The planner
-        (``autotopo``) is not ported yet, so this raises
-        ``NotImplementedError``."""
-        raise NotImplementedError(
-            "ServeSpec.from_plan needs the auto-topology planner "
-            "(autotopo), which is not ported yet")
+        """A spec that serves a planner recommendation
+        (:class:`repro_torch.autotopo.PlanResult` or its ``to_dict()`` form):
+        the ranked candidate's canonical cluster + router, the probe-time
+        spec knobs (``spec_kw``), and the planned workload's arrival
+        process at ``rate`` (default: the candidate's measured capacity)
+        — so ``serve.py --plan ... --serve-best`` runs the deployment
+        under exactly the conditions the planner scored it at.
+        ``overrides`` win over everything."""
+        from repro_torch.autotopo import parse_workload
+        d = plan.to_dict() if hasattr(plan, "to_dict") else plan
+        ranked = d.get("ranked", [])
+        if not ranked:
+            raise ValueError("cannot build a spec from an empty plan")
+        if not 0 <= rank < len(ranked):
+            raise ValueError(f"plan has {len(ranked)} ranked candidates; "
+                             f"rank {rank} is out of range")
+        best = ranked[rank]
+        if rate is None:
+            rate = best["capacity_qps"]
+        workload = parse_workload(d["workload"])
+        kw = dict(d.get("spec_kw", {}))
+        kw.update(cluster=best["cluster"], router=best["router"],
+                  arrival=workload.arrival_spec(rate) if rate > 0 else None)
+        kw.update(overrides)
+        return cls(**kw)
 
     # ------------------------------------------------------------------
     # argparse round-trip (serve.py's system flags live HERE so the CLI

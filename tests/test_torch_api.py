@@ -24,6 +24,7 @@ from repro.workloads import OpenLoopDriver as JaxDriver
 from repro.workloads import find_capacity as jax_find_capacity
 from repro.workloads import parse_arrival as jax_parse_arrival
 from repro_torch.cluster.router import ROUTERS
+from repro_torch.configs import ARCH_IDS
 from repro_torch.serving import trace
 from repro_torch.serving.api import ServeSpec
 from repro_torch.serving.simulator import APPROACHES
@@ -91,8 +92,7 @@ def test_spec_validation_errors_equal_jax(kw, msg):
         ServeSpec(**kw)
     with pytest.raises(ValueError, match=msg) as want:
         JaxSpec(**kw)
-    if "arch" not in kw:        # the port's registry holds fewer archs
-        assert str(got.value) == str(want.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_cli_covers_every_spec_field_and_matches_jax():
@@ -114,14 +114,23 @@ def test_cli_covers_every_spec_field_and_matches_jax():
             JaxSpec.from_cli(jap.parse_args(argv)).to_dict()
 
 
-def test_from_plan_names_autotopo():
-    with pytest.raises(NotImplementedError, match="autotopo"):
-        ServeSpec.from_plan({"ranked": []})
-
-
 # ---------------------------------------------------------------------------
 # InferenceService on the NullExecutor: equal to the JAX package's
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_null_aggregates_equal_jax(arch):
+    """Every architecture of the registry is accepted, and on a
+    20-request trace its NullExecutor aggregates (the device models'
+    clocks read the config's sizes) equal the JAX package's, key for
+    key. (On the A100 + A10 pair the three largest models complete 2 of
+    the 20 in both packages.)"""
+    kw = dict(seed=0, interval=0.1)
+    got = ServeSpec(arch=arch).build().run(trace.make_trace(20, **kw))
+    want = JaxSpec(arch=arch).build().run(jax_trace.make_trace(20, **kw))
+    assert got["completed"] > 0
+    assert got == want
+
 
 @pytest.mark.parametrize("interval", [0.0, 1 / 7.0],
                          ids=["maxtput", "staggered"])
@@ -292,6 +301,20 @@ def test_launch_serve_prints_the_jax_metrics(monkeypatch, capsys):
     assert json.loads(got)["completed"] == 60
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_launch_serve_every_arch_prints_the_jax_metrics(arch, monkeypatch,
+                                                        capsys):
+    """``--arch`` takes every architecture; on the null executor the
+    launcher prints the JAX launcher's metrics JSON."""
+    argv = ["--arch", arch, "--approach", "cronus", "--n-requests", "5",
+            "--interval", "0.1"]
+    code, got = _main("repro_torch.launch.serve", argv, monkeypatch, capsys)
+    _, want = _main("repro.launch.serve", argv, monkeypatch, capsys)
+    assert code == 0
+    assert json.loads(got) == json.loads(want)
+    assert json.loads(got)["completed"] > 0
+
+
 def test_launch_serve_flags_and_refusals(tmp_path, monkeypatch, capsys):
     """--help lists the demo flags and --device; a bad spec file and the
     planner's flags exit with a one-line message; --trace-out writes the
@@ -305,8 +328,8 @@ def test_launch_serve_flags_and_refusals(tmp_path, monkeypatch, capsys):
         assert flag in helped
     for argv, msg in ((["--spec", str(tmp_path / "none.json")],
                        "bad serving spec"),
-                      (["--plan", "A100:1,A10:2"], "autotopo"),
-                      (["--serve-best"], "autotopo")):
+                      (["--serve-best"], "need --plan RACK"),
+                      (["--workload", "azure:poisson"], "need --plan RACK")):
         code, _ = _main(mod, argv, monkeypatch, capsys)
         assert isinstance(code, str) and msg in code and "\n" not in code
     trace_argv = ["--approach", "cronus", "--n-requests", "20",

@@ -96,6 +96,8 @@ def test_split_decode_matches_jax(split, dtype):
     (3, 8, 8, 64, 8, 16),       # MHA, two pages a split
     (3, 16, 2, 128, 16, 16),    # G = 8, one page a split
     (3, 12, 4, 32, 4, 12),      # G = 3, a split of three pages
+    (3, 14, 2, 64, 16, 16),     # G = 7 (qwen2-7b, deepseek-coder-33b)
+    (3, 24, 2, 32, 4, 12),      # G = 12 (starcoder2-15b): two head passes
 ])
 def test_split_decode_shapes(b, h, kv, d, page, split):
     """Head dims, GQA ratios and page sizes the kernel takes, against the
@@ -107,6 +109,21 @@ def test_split_decode_shapes(b, h, kv, d, page, split):
     got = ref.paged_decode_attention_split_ref(*tx, split_tokens=split)
     _close(got, jax_decode_ref(jq, jk, jv, jbt, jcl), "float32")
     _close(got, ref.paged_decode_attention_ref(*tx), "float32")
+
+
+@pytest.mark.parametrize("h,kv", [(14, 2), (24, 2)], ids=["G7", "G12"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_decode_new_gqa_ratios_match_pallas(h, kv, dtype):
+    """The dense families' group sizes that are no power of two: contexts
+    of several splits, one shorter than a split, and ctx = 0, against the
+    Pallas kernel in interpret mode."""
+    b, d, page, maxp = 4, 32, 4, 10
+    arrays = _decode_case(b, h, kv, d, 48, page, maxp, [37, 5, 0, 40],
+                          seed=2)
+    (jq, jk, jv, jbt, jcl), tx = _both(arrays, dtype)
+    got = ref.paged_decode_attention_split_ref(*tx, split_tokens=3 * page)
+    assert torch.count_nonzero(got[2]) == 0
+    _close(got, decode_pallas(jq, jk, jv, jbt, jcl, interpret=True), dtype)
 
 
 def test_split_decode_context_past_the_table():
@@ -151,6 +168,12 @@ PREFILL_CASES = {
     "window_skips_leading_tiles": (1, 16, 4, 4, 32, 96, 16, 70, 12),
     "ragged_c_s": (2, 13, 4, 2, 64, 50, 13, 30, 0),
     "ragged_window": (1, 21, 8, 1, 32, 37, 21, 10, 8),
+    # G = 7 and G = 12: 18 and 10 queries to a 128-row tile, ragged C
+    # (padded queries) and a kv_pos = -1 tail, without and with a window
+    "g7_ragged": (1, 45, 14, 2, 32, 100, 41, 40, 0),
+    "g7_window": (1, 45, 14, 2, 32, 100, 41, 40, 16),
+    "g12_ragged": (1, 27, 24, 2, 32, 70, 23, 30, 0),
+    "g12_window": (1, 27, 24, 2, 32, 70, 23, 30, 16),
 }
 
 

@@ -5,18 +5,21 @@ Inputs are drawn with numpy and fed to both. Tolerances: 1e-6 in fp32
 bf16 (one bf16 rounding of values of magnitude up to ~4), 1e-5 where a
 d=256 matrix product sums in different orders.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model
 from repro.models import layers as jax_layers
 from repro.models import rope as jax_rope
-from repro_torch.configs import get_config
-from repro_torch.models import bridge, layers, rope
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import bridge, layers, rope, transformer
 from repro_torch.models.transformer import DecoderModel, init_params
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -167,10 +170,61 @@ def test_init_params_matches_the_bridge_layout(jax_tree):
     assert torch.count_nonzero(fresh[("layers", "ln1")]) == 0
 
 
-def test_get_config_knows_only_llama3():
-    assert get_config("llama3-8b").d_model == 4096
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_get_config_equals_jax(arch):
+    """The registry holds the JAX package's twelve architectures, in its
+    order, and each config equals the JAX one field for field, full and
+    smoke."""
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+            dataclasses.asdict(jax_get_config(arch, smoke=smoke))
     with pytest.raises(KeyError):
-        get_config("qwen3-32b")
+        get_config(arch + "-x")
+
+
+DENSE_ARCHS = ["llama3-8b", "qwen2-7b", "deepseek-coder-33b",
+               "starcoder2-15b", "qwen3-32b", "gemma3-27b", "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_param_shapes_match_jax_init_params(arch):
+    """The dense families (qk-norm, windows, the VLM's dense stack) lay
+    out the JAX pytree's leaves at the same shapes, and the bridge
+    carries a JAX tree of that layout across."""
+    cfg, jcfg = get_config(arch, smoke=True), jax_get_config(arch,
+                                                             smoke=True)
+    jshapes = jax.eval_shape(build_model(jcfg).init_params,
+                             jax.random.PRNGKey(0))
+    want = {k: v.shape for k, v in _flatten(jshapes)}
+    assert {k: tuple(v) for k, v in
+            _flatten(transformer.param_shapes(cfg))} == want
+    zeros = {}
+    for key, shape in want.items():
+        node = zeros
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.zeros(shape, np.float32)
+    p = bridge.params_from_numpy(zeros, cfg, device="cpu",
+                                 dtype=torch.bfloat16)
+    for key, t in _flatten(p):
+        norm = key[-1] in transformer.NORM_KEYS
+        assert t.dtype == (torch.float32 if norm else torch.bfloat16), key
+
+
+# one refusal per family still to be ported (ROADMAP.md queue 1 items 7-10)
+UNPORTED = {"kimi-k2-1t-a32b": "MoE + MLA", "deepseek-v2-236b": "MoE + MLA",
+            "mamba2-780m": "SSM", "hymba-1.5b": "hybrid",
+            "whisper-base": "encoder-decoder"}
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_families_refuse(arch):
+    cfg = get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="queue 1 items 7-10"):
+        transformer.param_shapes(cfg)
+    with pytest.raises(NotImplementedError, match="queue 1"):
+        DecoderModel(cfg, device="cpu", generator=torch.Generator())
 
 
 def _flatten(tree, prefix=()):
