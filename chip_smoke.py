@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -51,7 +51,22 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    executor, then phase 4's parity at 2 layers; (7c) gemma3-27b (5 local layers of window 1024, 1 global)
    cut to 6 layers and (7d) qwen2-vl-72b (M-RoPE) cut to 4 layers on the
    slot executor, which the JAX package serves them on (its paged
-   executor refuses both, as does the port's).
+   executor refuses both, as does the port's);
+8. the MoE families on the slot executor (the paged executor refuses
+   them in both packages), each drawn on the card from seed 0 in bf16 at
+   full width (experts, top-k and shared experts kept) and cut in depth,
+   served by Cronus on phase 3's requests through ``ServeSpec(arch=...,
+   executor="real", max_slots=8, s_kv=2560, block_size=320)
+   .build(device="cuda")`` (``build_cronus``'s 64-block floor then holds
+   8 x 2560 positions) and freed before the next: (8a)
+   deepseek-v2-236b (MoE + MLA) at 5 of 60 layers (1 dense + 4 MoE),
+   (8b) kimi-k2-1t-a32b (MoE + GQA) at 2 of 61 (1 dense + 1 MoE); after
+   each, (8c) its first MoE layer on 64 tokens, ``moe_block(exact=True)``
+   against the dense oracle within a derived bf16 rule that a dropped
+   expert fails by >= 10x (median over the tokens), and capacity mode's
+   dropped pairs; then (8d)
+   the launcher with ``--arch deepseek-v2-236b --smoke --executor real``
+   in a subprocess. Phase 8 launches no kernel of the repo.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -1250,6 +1265,174 @@ def phase_families(torch, n_requests=N_REQUESTS):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE families on the slot executor
+# ---------------------------------------------------------------------------
+
+# (run, arch, layers kept): the dense first layer and MoE layers after it;
+# widths, expert count, top-k and shared experts are kept. One routed
+# layer of kimi-k2 is 16.9 B parameters, so a third layer would not fit
+# beside the working memory.
+MOE_RUNS = (
+    ("8a", "deepseek-v2-236b", 5),    # MoE + MLA: 1 dense + 4 MoE layers
+    ("8b", "kimi-k2-1t-a32b", 2),     # MoE + GQA: 1 dense + 1 MoE layer
+)
+# the engines' KV budget: SLOTS x S_KV positions, phase 7's 8 x 160
+# blocks of 16. ``ServeSpec`` refuses ``num_kv_blocks`` with
+# executor="real" (as the JAX package's does: it sizes the paged pool), and
+# the simulated A100/A10 budgets for these weights, which outgrow both
+# cards, are ``build_cronus``'s 64-block floor; so the block is made 320
+# tokens, and 64 of them hold the same 20480 positions
+MOE_BLOCK = SLOTS * S_KV // 64
+# tokens of phase 8c's check of the MoE block against its dense oracle
+MOE_CHECK_TOKENS = 64
+# the launcher run of phase 8d
+LAUNCH_ARGS_8D = ["--arch", "deepseek-v2-236b", "--smoke", "--executor",
+                  "real", "--n-requests", "4", "--scale", "0.02",
+                  "--device", "cuda"]
+
+
+def _moe_text(cfg):
+    """The MoE and MLA widths of a config, for phase 8's lines."""
+    text = (f"{cfg.moe_dense_layers} dense layer(s) of d_ff "
+            f"{cfg.moe_dense_d_ff}, then {cfg.n_experts} routed experts "
+            f"top-{cfg.top_k} + {cfg.n_shared_experts} shared of d_ff "
+            f"{cfg.d_ff}")
+    if cfg.mla_kv_lora_rank:
+        text += (f"; MLA kv rank {cfg.mla_kv_lora_rank}, q rank "
+                 f"{cfg.mla_q_lora_rank}, nope/rope/v head dims "
+                 f"{cfg.mla_nope_head_dim}/{cfg.mla_rope_head_dim}/"
+                 f"{cfg.mla_v_head_dim}")
+    return text
+
+
+def _moe_oracle(torch, tag, model):
+    """(8c) The first MoE layer of ``model`` at full width in bf16 on
+    MOE_CHECK_TOKENS tokens: ``moe_block(exact=True)`` against the dense
+    oracle, and capacity mode's dropped pairs at the config's factor.
+
+    Tolerance, elementwise: |got - want| <= 2^-6 * (S + P) + 2^-12, with
+    S = sum over the token's top-k of w_k * |y_k| (y_k: expert k's output)
+    and P the largest magnitude of the output's partial sums (the routed
+    sum, then each shared expert added), both from the oracle's own
+    values in fp32. The two route through the same router product on the
+    same inputs, so they pick the same experts and weights; both take the
+    products w_k * y_k exactly in fp32 and sum them in fp32. What differs
+    is the order of fp32 sums: each y_k comes from a product over that
+    expert's rows in one and over all rows in the other, so its bf16
+    rounding may land one ulp (<= 2^-7 * |y_k|) apart, which weighs
+    <= 2^-7 * S in the sum; and each rounding of a partial sum to bf16 may
+    land one ulp (<= 2^-7 * P) apart. Two ulps at each level give the
+    rule; 2^-12 covers entries near 0. Dropping expert k's contribution
+    moves the token's row by w_k * y_k: each token's lowest-weighted
+    expert is dropped from the oracle in turn, and the median over the
+    tokens of the rule's max err/tol must reach 10 (the smallest, and
+    token 0's, are printed)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import swiglu
+    from repro_torch.models.transformer import layer_slice
+    cfg = model.cfg
+    p = layer_slice(model.params["layers"]["moe"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((1, MOE_CHECK_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(model.dtype)
+    t0 = time.perf_counter()
+    got, aux = moe.moe_block(p, cfg, x, exact=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = moe.moe_block_dense_ref(p, cfg, x)[0].float()
+    got = got[0].float()
+    y, w = moe.dense_expert_outputs(p, cfg, x[0])
+    yf = y.float()
+    part = torch.einsum("etd,te->td", yf, w)
+    big = part.abs()
+    for i in range(cfg.n_shared_experts):
+        sp = p[f"shared_{i}"]
+        part = part + swiglu(x[0], sp["w_gate"], sp["w_up"],
+                             sp["w_down"]).float()
+        big = torch.maximum(big, part.abs())
+    tol = 2.0 ** -6 * (torch.einsum("etd,te->td", yf.abs(), w) + big) \
+        + 2.0 ** -12
+    ratio = ((got - want).abs() / tol).max().item()
+    rows = torch.arange(MOE_CHECK_TOKENS, device=w.device)
+    weak = torch.where(w > 0, w, float("inf")).argmin(-1)       # [T]
+    cut = want - w[rows, weak][:, None] * yf[weak, rows]
+    cut_ratio = ((got - cut).abs() / tol).amax(-1)              # [T]
+    med = cut_ratio.median().item()
+    _, _, idx = moe.route(p, cfg, x[0])
+    cap = moe.capacity(MOE_CHECK_TOKENS, cfg, False)
+    _, _, dropped = moe.dispatch(idx, cfg.n_experts, cap)
+    log(f"{tag} moe_block(exact) vs dense oracle, layer {model.n_dense} "
+        f"of {cfg.name} ({cfg.n_experts} experts top-{cfg.top_k}), "
+        f"{MOE_CHECK_TOKENS} tokens bf16: max abs err "
+        f"{(got - want).abs().max().item():.4g}, max err/tol {ratio:.4f} "
+        f"(tol 2^-6*(S + P) + 2^-12, passes at <= 1); each token's "
+        f"lowest-weighted expert dropped from the oracle: err/tol median "
+        f"{med:.2f} (must be >= 10), min {cut_ratio.min().item():.2f}, "
+        f"token 0 {cut_ratio[0].item():.2f} (expert {weak[0].item()}, w "
+        f"{w[0, weak[0]].item():.4f}); aux {aux.item():.6f}; block "
+        f"{1e3 * secs:.3f} ms (host clock, first call); capacity mode at "
+        f"factor {cfg.capacity_factor}: capacity {cap}, {int(dropped)} of "
+        f"{MOE_CHECK_TOKENS * cfg.top_k} pairs dropped")
+    if not ratio <= 1.0:
+        _fail(f"{tag} moe_block vs dense oracle: err/tol {ratio:.4f}")
+    if not med >= 10.0:
+        _fail(f"{tag} the oracle rule misses a dropped expert: median "
+              f"err/tol {med:.2f} < 10")
+
+
+def phase_moe(torch, n_requests=N_REQUESTS):
+    """The MoE families at full width on the slot executor, each drawn on
+    the card from seed 0 in bf16 at a cut depth and served by Cronus
+    through ``ServeSpec(arch=..., executor="real").build()``: (8a)
+    deepseek-v2-236b (MoE + MLA), (8b) kimi-k2-1t-a32b (MoE + GQA), each
+    followed by (8c) its first MoE layer against the dense oracle; then
+    (8d) the launcher on deepseek-v2's smoke config. No kernel of the repo
+    runs here (the paged executor refuses these models)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import PagedRealExecutor
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.serving.api import ServeSpec
+    for run, arch, layers in MOE_RUNS:
+        tag = f"[phase {run}]"
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = DecoderModel(cfg, device="cuda", generator=gen,
+                             exact_moe=True)
+        torch.cuda.synchronize()
+        log(f"{tag} {_describe(cfg, full)}; {_moe_text(cfg)}; weights "
+            f"drawn on the card in {time.perf_counter() - t0:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        try:
+            PagedRealExecutor(model)
+        except NotImplementedError as e:
+            log(f"{tag} PagedRealExecutor refuses it, as the JAX "
+                f"package's does: {e}")
+        else:
+            _fail(f"{tag} PagedRealExecutor accepted {cfg.name}")
+        spec = ServeSpec(arch=arch, approach="cronus", executor="real",
+                         max_slots=SLOTS, s_kv=S_KV, block_size=MOE_BLOCK)
+        torch.cuda.reset_peak_memory_stats()
+        service, recs, res, wall, launches, reqs = _serve(torch, spec,
+                                                          model, n_requests)
+        _family_report(torch, f"{tag} cronus slot executor ({SLOTS} slots "
+                       f"x {S_KV} positions, ServeSpec.build)", recs, res,
+                       wall, launches, reqs, "real", n_requests)
+        if any(launches.values()):
+            _fail(f"{tag} a kernel of the repo launched: {launches}")
+        # the PPI->CPI handoff (the dense first layer's cache included)
+        if not any(0 < r.partial_len < r.input_len for r in reqs):
+            _fail(f"{tag} no request was split between PPI and CPI")
+        del service, recs, reqs
+        _free(torch)
+        _moe_oracle(torch, f"[phase 8c] {arch}", model)
+        del model
+        _free(torch)
+    _launcher(LAUNCH_ARGS_8D, "[phase 8d]")
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -1271,7 +1454,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1308,6 +1491,8 @@ def main() -> int:
     if 7 in phases:
         for name, n in timed(7, phase_families, torch).items():
             launches[name] = launches.get(name, 0) + n
+    if 8 in phases:
+        timed(8, phase_moe, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

@@ -138,10 +138,12 @@ class RealExecutor:
     Eager PyTorch recompiles nothing, so the port writes only the real
     tokens; ``compile_stats`` still counts the JAX package's buckets.
 
-    Supported model families: dense-attention stacks ("mlp" kind,
-    sliding windows, qk-norm and M-RoPE included), the only ones
-    :class:`~repro_torch.models.transformer.DecoderModel` lays out so far (the SSM-state restore and the cross-KV install of the
-    JAX executor come with those families).
+    Supported model families: those
+    :class:`~repro_torch.models.transformer.DecoderModel` lays out so
+    far: dense-attention stacks ("mlp" kind: sliding windows, qk-norm
+    and M-RoPE included) and MoE stacks with leading dense layers, GQA or
+    MLA attention (deepseek-v2, kimi-k2). The SSM-state restore and the
+    cross-KV install of the JAX executor come with those families.
     """
 
     def __init__(self, model, params=None, *, max_slots: int, s_kv: int,
@@ -228,11 +230,14 @@ class RealExecutor:
         return out
 
     # ------------------------------------------------------------------
-    # KV handoff. The attention caches carry a sequence axis at dim 2 of
-    # each [L, slot, S_kv, ...] leaf; only the first ``upto`` positions
-    # are valid at extract time, so only they travel — the PPI->CPI
-    # payload is sized by the partial prefill, not by the slot width.
+    # KV handoff. The attention caches (k/v, MLA ckv/kpe) carry a
+    # sequence axis at dim 2 of each [L, slot, S_kv, ...] leaf; only the
+    # first ``upto`` positions are valid at extract time, so only they
+    # travel — the PPI->CPI payload is sized by the partial prefill, not
+    # by the slot width. An MoE model's leading dense layers keep their
+    # own cache subtree ("dense"), which travels beside "stack".
     _SEQ_KEYS = frozenset(("k", "v", "ckv", "kpe"))
+    _LAYER_GROUPS = ("stack", "dense")
 
     def extract_kv(self, slot: int, upto: int):
         """Pull one slot's cache slices (the PPI->CPI payload): a copy on
@@ -242,21 +247,24 @@ class RealExecutor:
             return (a[:, slot, :upto] if key in self._SEQ_KEYS
                     else a[:, slot]).clone()
 
-        return {"stack": {k: take(k, a)
-                          for k, a in self.cache["stack"].items()},
-                "_upto": upto}
+        payload = {group: {k: take(k, a)
+                           for k, a in self.cache[group].items()}
+                   for group in self._LAYER_GROUPS if group in self.cache}
+        payload["_upto"] = upto
+        return payload
 
     @torch.no_grad()
     def inject_kv(self, slot: int, payload, upto: int):
         """Install a transferred payload into ``slot``, in place, and mark
         ``[0, upto)`` valid."""
-        for k, dst in self.cache["stack"].items():
-            src = payload["stack"][k].to(device=self.device,
-                                         dtype=dst.dtype)
-            if k in self._SEQ_KEYS:
-                dst[:, slot, :src.shape[1]] = src
-            else:
-                dst[:, slot] = src
+        for group in self._LAYER_GROUPS:
+            for k, dst in self.cache.get(group, {}).items():
+                src = payload[group][k].to(device=self.device,
+                                           dtype=dst.dtype)
+                if k in self._SEQ_KEYS:
+                    dst[:, slot, :src.shape[1]] = src
+                else:
+                    dst[:, slot] = src
         self.pos[slot, :] = -1
         self.pos[slot, :upto] = np.arange(upto)
         self.lens[slot] = upto

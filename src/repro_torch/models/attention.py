@@ -1,11 +1,11 @@
-"""Attention of a dense GQA layer over the slot ("unified") cache.
+"""Attention over the slot ("unified") cache: dense GQA and MLA.
 
 The counterpart of the JAX package's ``models/attention.py`` for the slot
 executor's serving path: parameter shapes, the ring write into the cache,
-the position mask, softmax attention (plain and blocked) and the whole
-attention block. The paged executor's attention runs in
-:mod:`repro_torch.kernels` instead. MLA and the encoder/cross attention
-are still to be ported.
+the position mask, softmax attention (plain and blocked), the GQA
+attention block and DeepSeek-V2's MLA block over a latent cache. The
+paged executor's attention runs in :mod:`repro_torch.kernels` instead.
+The encoder/cross attention is still to be ported.
 
 Unified cache semantics
 -----------------------
@@ -44,15 +44,38 @@ BLOCKED_ATTN_THRESHOLD = 1 << 22
 def attention_shapes(cfg, n_layers: int) -> Dict[str, Tuple[int, ...]]:
     """Shapes of ``n_layers`` stacked attention blocks: ``wq/wk/wv`` are
     ``[d, heads * head_dim]`` and ``wo`` is ``[H * head_dim, d]``, plus the
-    per-head qk-norm deltas where the config has them."""
+    per-head qk-norm deltas where the config has them; MLA's layout where
+    the config has a latent KV rank."""
     if cfg.mla_kv_lora_rank:
-        raise NotImplementedError("MLA attention is not ported yet")
+        return mla_shapes(cfg, n_layers)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = {"wq": (n_layers, d, h * hd), "wk": (n_layers, d, kv * hd),
               "wv": (n_layers, d, kv * hd), "wo": (n_layers, h * hd, d)}
     if cfg.qk_norm:
         shapes["q_norm"] = (n_layers, hd)
         shapes["k_norm"] = (n_layers, hd)
+    return shapes
+
+
+def mla_shapes(cfg, n_layers: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of ``n_layers`` stacked MLA blocks (the JAX ``_init_mla``):
+    the KV down-projection ``w_dkv [d, r_kv]`` with its norm, the shared
+    rope key ``w_kpe [d, hd_r]``, the up-projections ``w_uk [r_kv, H,
+    hd_n]`` and ``w_uv [r_kv, H, hd_v]``, ``wo [H * hd_v, d]``, and the
+    query either through a LoRA (``w_dq``, ``q_norm``, ``w_uq``) or
+    straight (``wq [d, H, hd_n + hd_r]``)."""
+    d, h, n = cfg.d_model, cfg.n_heads, n_layers
+    r_kv, r_q = cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank
+    hd_n, hd_r = cfg.mla_nope_head_dim, cfg.mla_rope_head_dim
+    hd_v = cfg.mla_v_head_dim
+    shapes = {"w_dkv": (n, d, r_kv), "w_kpe": (n, d, hd_r),
+              "kv_norm": (n, r_kv), "w_uk": (n, r_kv, h, hd_n),
+              "w_uv": (n, r_kv, h, hd_v), "wo": (n, h * hd_v, d)}
+    if r_q:
+        shapes.update(w_dq=(n, d, r_q), q_norm=(n, r_q),
+                      w_uq=(n, r_q, h, hd_n + hd_r))
+    else:
+        shapes["wq"] = (n, d, h, hd_n + hd_r)
     return shapes
 
 
@@ -178,6 +201,14 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :sq].to(q.dtype)
 
 
+def _cache_rows(layer_cache: Dict, keys, b: int,
+                rows: Optional[torch.Tensor]):
+    """The batch's rows of the cache leaves ``keys``."""
+    if rows is None:
+        return [layer_cache[k][:b] for k in keys]
+    return [layer_cache[k].index_select(0, rows) for k in keys]
+
+
 # ---------------------------------------------------------------------------
 # GQA block with cache
 # ---------------------------------------------------------------------------
@@ -208,11 +239,7 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     scatter_tokens(layer_cache["k"], k, idx, rows)
     scatter_tokens(layer_cache["v"], v, idx, rows)
-    if rows is None:
-        ck, cv = layer_cache["k"][:b], layer_cache["v"][:b]
-    else:
-        ck = layer_cache["k"].index_select(0, rows)
-        cv = layer_cache["v"].index_select(0, rows)
+    ck, cv = _cache_rows(layer_cache, ("k", "v"), b, rows)
     if sq * ck.shape[1] >= BLOCKED_ATTN_THRESHOLD and sq > 1:
         out = blocked_gqa_attend(q, ck, cv, positions, kv_pos, window,
                                  hd ** -0.5)
@@ -220,4 +247,63 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         mask = make_mask(positions, kv_pos, window)
         out = gqa_attend(q, ck, cv, mask, hd ** -0.5)
     out = out.reshape(b, sq, h * hd) @ p["wo"].to(x.dtype)
+    return out, layer_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V2): the cache holds the compressed latent and the
+# rope key. The weight-absorbed form serves chunked prefill (partial KV
+# present) and decode with one code path, as in the JAX package, which has
+# no blocked variant of it.
+# ---------------------------------------------------------------------------
+
+def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
+                        positions: torch.Tensor, kv_pos: torch.Tensor,
+                        idx: torch.Tensor, layer_cache: Dict, window,
+                        rows: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """Multi-head latent attention over the unified cache, written in
+    place; arguments as :func:`attention_block`, with ``layer_cache``
+    {'ckv': ``[B, S_kv, r_kv]``, 'kpe': ``[B, S_kv, hd_r]``}.
+
+    ``W_uk`` is absorbed into the query, so scores are taken against the
+    latent directly, and ``W_uv`` is applied after the weighted sum; both
+    in fp32, scaled by ``(hd_n + hd_r) ** -0.5``. RoPE touches only the
+    rope parts of the query and key.
+    """
+    b, sq, _ = x.shape
+    h = cfg.n_heads
+    hd_n, hd_r = cfg.mla_nope_head_dim, cfg.mla_rope_head_dim
+    hd_v = cfg.mla_v_head_dim
+
+    c_kv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
+    k_pe = (x @ p["w_kpe"].to(x.dtype)).reshape(b, sq, 1, hd_r)
+    k_pe = position_encode(k_pe, positions, cfg)[:, :, 0, :]
+
+    if cfg.mla_q_lora_rank:
+        q_lat = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"],
+                        cfg.norm_eps)
+        q = torch.einsum("bsr,rhe->bshe", q_lat, p["w_uq"].to(x.dtype))
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    q_nope, q_pe = q[..., :hd_n], q[..., hd_n:]
+    q_pe = position_encode(q_pe, positions, cfg)
+
+    scatter_tokens(layer_cache["ckv"], c_kv, idx, rows)
+    scatter_tokens(layer_cache["kpe"], k_pe, idx, rows)
+    cckv, ckpe = (a.float() for a in _cache_rows(layer_cache,
+                                                  ("ckv", "kpe"), b, rows))
+
+    # absorb W_uk into q: scores over the latent directly
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                         p["w_uk"].float())
+    scale = (hd_n + hd_r) ** -0.5
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, cckv)
+              + torch.einsum("bshp,btp->bhst", q_pe.float(), ckpe)) * scale
+    mask = make_mask(positions, kv_pos, window)           # [B,1,Sq,Skv]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhst,btr->bshr", probs, cckv)
+    out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].float())
+    out = out.reshape(b, sq, h * hd_v).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, layer_cache

@@ -1,4 +1,5 @@
-"""Basic layers: RMSNorm, SwiGLU MLP and the truncated-normal init."""
+"""Basic layers: RMSNorm, SwiGLU MLP, its shapes and the truncated-normal
+init."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -38,3 +39,9 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """SwiGLU MLP. x:[...,d]; w_gate/w_up:[d,f]; w_down:[f,d]."""
     h = F.silu(x @ w_gate.to(x.dtype)) * (x @ w_up.to(x.dtype))
     return h @ w_down.to(x.dtype)
+
+
+def mlp_shapes(d: int, f: int, n_layers: int):
+    """Shapes of ``n_layers`` stacked SwiGLU MLPs (``[in, out]``)."""
+    return {"w_gate": (n_layers, d, f), "w_up": (n_layers, d, f),
+            "w_down": (n_layers, f, d)}

@@ -1,12 +1,13 @@
 """Decoder-only model: parameters, the slot cache and the serving forward.
 
-The counterpart of the JAX package's ``models/transformer.py`` for a dense
-("mlp" kind) stack: the parameters and facts the paged executor reads
-(``cfg``, ``n_stack``, ``n_dense``, ``is_mla``, ``dtype``,
-``_stack_kind()``), and the slot executor's ``init_cache`` and
-``forward(..., train=False)``. The MoE/SSM/hybrid/MLA/encoder-decoder
-families (refused when their parameters are laid out) and the training
-forward are still to be ported and raise ``NotImplementedError``.
+The counterpart of the JAX package's ``models/transformer.py`` for dense
+("mlp" kind) and MoE ("moe" kind: leading dense layers, then routed-expert
+layers) stacks, with GQA or MLA attention: the parameters and facts the
+paged executor reads (``cfg``, ``n_stack``, ``n_dense``, ``is_mla``,
+``dtype``, ``_stack_kind()``), and the slot executor's ``init_cache`` and
+``forward(..., train=False)``. The SSM/hybrid/encoder-decoder families
+(refused when their parameters are laid out) and the training forward are
+still to be ported and raise ``NotImplementedError``.
 
 Parameters keep the reference layout: ``x @ W`` with ``[in, out]`` weights
 and every per-layer leaf stacked along a leading ``L`` dimension. Weight
@@ -19,6 +20,7 @@ gigabytes).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional
 
 import torch
@@ -26,10 +28,13 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
-from repro_torch.models.layers import dense_init, rmsnorm, swiglu
+from repro_torch.models.layers import (dense_init, mlp_shapes, rmsnorm,
+                                       swiglu)
+from repro_torch.models.moe import EXPERT_KEYS, moe_block, moe_shapes
 
 # leaves stored fp32 whatever the model dtype (RMSNorm deltas from 1.0)
-NORM_KEYS = frozenset(("ln1", "ln2", "final_norm", "q_norm", "k_norm"))
+NORM_KEYS = frozenset(("ln1", "ln2", "final_norm", "q_norm", "k_norm",
+                       "kv_norm"))
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -37,27 +42,48 @@ def model_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def stack_kind(cfg) -> str:
+    """The kind of the stacked layers, as the JAX ``_stack_kind``."""
+    if cfg.arch_type == "ssm":
+        return "ssm"
+    if cfg.hybrid:
+        return "hybrid"
+    if cfg.is_moe:
+        return "moe"
+    return "mlp"
+
+
+def _layer_shapes(cfg, kind: str, n: int) -> Dict:
+    """``n`` stacked layers of ``kind``: "mlp", "dense_mlp" (an MoE
+    model's leading dense layers, ``moe_dense_d_ff`` wide) or "moe"."""
+    d = cfg.d_model
+    shapes = {"ln1": (n, d), "ln2": (n, d), "attn": attention_shapes(cfg, n)}
+    if kind == "moe":
+        shapes["moe"] = moe_shapes(cfg, n)
+    else:
+        f = (cfg.moe_dense_d_ff or cfg.d_ff) if kind == "dense_mlp" \
+            else cfg.d_ff
+        shapes["mlp"] = mlp_shapes(d, f, n)
+    return shapes
+
+
 def param_shapes(cfg) -> Dict:
-    """Nested dict of the shapes of a dense stack's parameters (dense and
-    VLM families), as the JAX ``DecoderModel.init_params`` lays them
-    out."""
+    """Nested dict of the shapes of a dense or MoE stack's parameters
+    (dense, VLM and MoE families, GQA or MLA attention), as the JAX
+    ``DecoderModel.init_params`` lays them out."""
     # a VLM is a dense "mlp" stack fed by a frontend (the JAX package's
     # ``_stack_kind``); its embedding and head are laid out all the same
-    if (cfg.arch_type not in ("dense", "vlm") or cfg.is_moe or cfg.hybrid
-            or cfg.enc_dec):
+    kind = stack_kind(cfg)
+    if kind not in ("mlp", "moe") or cfg.enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: only dense-attention stacks are ported so far "
-            "(MoE, SSM/hybrid, MLA and encoder-decoder come with ROADMAP.md "
-            "queue 1 items 7-10)")
-    d, f, v, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
-    attn = attention_shapes(cfg, n)
-    shapes = {
-        "embed": (v, d),
-        "final_norm": (d,),
-        "layers": {"ln1": (n, d), "ln2": (n, d), "attn": attn,
-                   "mlp": {"w_gate": (n, d, f), "w_up": (n, d, f),
-                           "w_down": (n, f, d)}},
-    }
+            f"{cfg.name}: SSM, hybrid and encoder-decoder stacks are not "
+            "ported yet (they come with ROADMAP.md queue 1 items 8 and 10)")
+    d, v = cfg.d_model, cfg.vocab_size
+    n_dense = cfg.moe_dense_layers if cfg.is_moe else 0
+    shapes = {"embed": (v, d), "final_norm": (d,),
+              "layers": _layer_shapes(cfg, kind, cfg.n_layers - n_dense)}
+    if n_dense:
+        shapes["dense_layers"] = _layer_shapes(cfg, "dense_mlp", n_dense)
     if not cfg.tie_embeddings:
         shapes["head"] = (d, v)
     return shapes
@@ -65,28 +91,34 @@ def param_shapes(cfg) -> Dict:
 
 def init_params(cfg, *, generator: torch.Generator, device) -> Dict:
     """Fresh weights drawn on ``device`` from ``generator``: the JAX
-    package's scheme (truncated-normal fan-in, embedding at 0.02, norm
-    deltas at 0), not its numbers."""
+    package's scheme (truncated-normal fan-in, so the router's scale is
+    ``d ** -0.5``; embedding at 0.02, norm deltas at 0), not its numbers.
+    Stacked leaves are drawn one layer at a time, and the routed experts'
+    ``[E, d, f]`` leaves one expert at a time, so the fp32 scratch stays
+    one matrix (one layer of kimi-k2's ``w_gate`` would be 21 GiB)."""
     dtype = model_dtype(cfg)
 
-    def make(key, shape, stacked):
+    def make(key, shape, lead):
         if key in NORM_KEYS:
             return torch.zeros(shape, dtype=torch.float32, device=device)
         scale = 0.02 if key == "embed" else None
-        if not stacked:
-            return dense_init(shape, generator=generator, scale=scale,
-                              dtype=dtype, device=device)
         out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0]):      # one layer at a time: fp32 scratch
-            out[i] = dense_init(shape[1:], generator=generator, scale=scale,
-                                dtype=dtype, device=device)
+        for i in itertools.product(*map(range, shape[:lead])):
+            out[i] = dense_init(shape[lead:], generator=generator,
+                                scale=scale, dtype=dtype, device=device)
         return out
 
-    def build(tree, stacked):
-        return {k: (build(s, True) if isinstance(s, dict)
-                    else make(k, s, stacked)) for k, s in tree.items()}
+    def build(tree, lead):
+        out = {}
+        for k, s in tree.items():
+            if isinstance(s, dict):
+                out[k] = build(s, 1)
+            else:
+                routed = lead and k in EXPERT_KEYS and len(s) == 4
+                out[k] = make(k, s, 2 if routed else lead)
+        return out
 
-    return build(param_shapes(cfg), False)
+    return build(param_shapes(cfg), 0)
 
 
 def check_device(tree: Dict, device, what: str = "params") -> None:
@@ -124,26 +156,31 @@ class _ParamTree(nn.Module):
         return out
 
 
-def _layer_slice(tree: Dict, i: int) -> Dict:
+def layer_slice(tree: Dict, i: int) -> Dict:
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 
 
 class DecoderModel(nn.Module):
-    """Dense decoder: stacked ``[L, ...]`` parameters that the paged
-    executor reads layer by layer, and the slot-cache serving forward.
+    """Dense or MoE decoder: stacked ``[L, ...]`` parameters that the
+    paged executor reads layer by layer, and the slot-cache serving
+    forward.
 
     ``params`` is a nested dict of tensors (from
     :func:`repro_torch.models.bridge.params_from_numpy`, or
     :func:`init_params`) and must lie on ``device``; without it the
-    weights are drawn on ``device`` from ``generator``.
+    weights are drawn on ``device`` from ``generator``. ``exact_moe``
+    runs the MoE layers without capacity drops, as serving does (the
+    JAX constructor's keyword and default).
     """
 
     def __init__(self, cfg, params: Optional[Dict] = None, *,
-                 device, generator: Optional[torch.Generator] = None):
+                 device, generator: Optional[torch.Generator] = None,
+                 exact_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.exact_moe = exact_moe
         self.n_dense = cfg.moe_dense_layers if cfg.is_moe else 0
         self.n_stack = cfg.n_layers - self.n_dense
         self.is_mla = cfg.mla_kv_lora_rank > 0
@@ -162,31 +199,37 @@ class DecoderModel(nn.Module):
         return self.tree.as_dict()
 
     def _stack_kind(self) -> str:
-        cfg = self.cfg
-        if cfg.arch_type == "ssm":
-            return "ssm"
-        if cfg.hybrid:
-            return "hybrid"
-        if cfg.is_moe:
-            return "moe"
-        return "mlp"
+        return stack_kind(self.cfg)
 
     # ------------------------------------------------------------------
     # the slot cache and the serving forward
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, s_kv: int) -> Dict:
-        """Zeroed slot cache: ``pos [batch, s_kv]`` int32 (-1 = empty) and
-        the stacked ``k``/``v`` of ``[L, batch, s_kv, Kv, D]``, on the
-        model's device and in its dtype."""
+    def _attn_cache(self, n: int, batch: int, s_kv: int) -> Dict:
+        """``n`` stacked layers' attention cache: ``k``/``v`` of ``[n,
+        batch, s_kv, Kv, D]``, or MLA's latent ``ckv [n, batch, s_kv,
+        r_kv]`` and rope key ``kpe [n, batch, s_kv, hd_r]``."""
         cfg = self.cfg
-        dev = self.tree.embed.device
-        shape = (self.n_stack, batch, s_kv, cfg.n_kv_heads, cfg.head_dim)
-        return {"pos": torch.full((batch, max(s_kv, 1)), -1,
-                                  dtype=torch.int32, device=dev),
-                "stack": {"k": torch.zeros(shape, dtype=self.dtype,
-                                           device=dev),
-                          "v": torch.zeros(shape, dtype=self.dtype,
-                                           device=dev)}}
+        if self.is_mla:
+            tails = {"ckv": (cfg.mla_kv_lora_rank,),
+                     "kpe": (cfg.mla_rope_head_dim,)}
+        else:
+            tails = dict.fromkeys(("k", "v"), (cfg.n_kv_heads, cfg.head_dim))
+        return {k: torch.zeros((n, batch, s_kv) + t, dtype=self.dtype,
+                               device=self.tree.embed.device)
+                for k, t in tails.items()}
+
+    def init_cache(self, batch: int, s_kv: int) -> Dict:
+        """Zeroed slot cache on the model's device and in its dtype:
+        ``pos [batch, s_kv]`` int32 (-1 = empty), the stacked layers'
+        attention cache under ``stack`` and, for an MoE model's leading
+        dense layers, under ``dense``."""
+        cache = {"pos": torch.full((batch, max(s_kv, 1)), -1,
+                                   dtype=torch.int32,
+                                   device=self.tree.embed.device),
+                 "stack": self._attn_cache(self.n_stack, batch, s_kv)}
+        if self.n_dense:
+            cache["dense"] = self._attn_cache(self.n_dense, batch, s_kv)
+        return cache
 
     def embed_inputs(self, params: Dict, inputs: torch.Tensor
                      ) -> torch.Tensor:
@@ -196,26 +239,36 @@ class DecoderModel(nn.Module):
             return inputs.to(self.dtype)
         return params["embed"].to(self.dtype)[inputs.long()]
 
-    def _layer(self, lp: Dict, x, positions, kv_pos, idx, lc, width, rows):
-        """One dense layer: attention over the cache, then SwiGLU."""
+    def _layer(self, kind: str, lp: Dict, x, positions, kv_pos, idx, lc,
+               width, rows, aux):
+        """One layer: attention (GQA or MLA) over the cache, then SwiGLU
+        or, for the "moe" kind, the MoE block, whose loss adds to
+        ``aux``."""
         cfg = self.cfg
+        fn = attn.mla_attention_block if self.is_mla \
+            else attn.attention_block
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a_out, _ = attn.attention_block(lp["attn"], cfg, h, positions,
-                                        kv_pos, idx, lc, width, rows)
+        a_out, _ = fn(lp["attn"], cfg, h, positions, kv_pos, idx, lc, width,
+                      rows)
         x = x + a_out
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        if kind == "moe":
+            m_out, a = moe_block(lp["moe"], cfg, h2, exact=self.exact_moe)
+            return x + m_out, aux + a
         return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                          lp["mlp"]["w_down"])
+                          lp["mlp"]["w_down"]), aux
 
-    def _run_stack(self, stacked: Dict, x, positions, kv_pos, idx,
-                   stack_cache: Dict, rows):
-        """The stacked layers in order, each writing its cache in place."""
-        for i in range(self.n_stack):
-            lc = {k: stack_cache[k][i] for k in ("k", "v")}
-            x = self._layer(_layer_slice(stacked, i), x, positions, kv_pos,
-                            idx, lc, self.cfg.layer_window(self.n_dense + i),
-                            rows)
-        return x
+    def _run_stack(self, kind: str, stacked: Dict, first: int, x,
+                   positions, kv_pos, idx, stack_cache: Dict, rows, aux):
+        """The stacked layers in order (``first``: the model index of the
+        first, for its window), each writing its cache in place."""
+        for i in range(next(iter(stack_cache.values())).shape[0]):
+            lc = {k: a[i] for k, a in stack_cache.items()}
+            x, aux = self._layer(kind, layer_slice(stacked, i), x,
+                                 positions, kv_pos, idx, lc,
+                                 self.cfg.layer_window(first + i), rows,
+                                 aux)
+        return x, aux
 
     def forward(self, params: Dict, inputs: torch.Tensor, cache: Dict,
                 cache_len: torch.Tensor, *,
@@ -232,7 +285,8 @@ class DecoderModel(nn.Module):
         buffer is updated and used. ``rows`` (int64 ``[b]``) are the
         cache rows the batch maps to (default: the first ``b``); other
         rows are neither read nor written. Returns ``(logits [b, S, V],
-        cache, aux)``; ``aux`` is 0 (no MoE).
+        cache, aux)``; ``aux`` is the MoE layers' summed load-balance
+        loss (fp32; 0 without MoE).
         """
         if train:
             raise NotImplementedError(
@@ -253,10 +307,15 @@ class DecoderModel(nn.Module):
         else:
             cache["pos"][pos_rows] = kv_positions.to(cache["pos"].dtype)
         kv_pos = cache["pos"][pos_rows]
-        x = self._run_stack(params["layers"], x, positions, kv_pos, idx,
-                            cache["stack"], rows)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.n_dense:
+            x, aux = self._run_stack("dense_mlp", params["dense_layers"], 0,
+                                     x, positions, kv_pos, idx,
+                                     cache["dense"], rows, aux)
+        x, aux = self._run_stack(self._stack_kind(), params["layers"],
+                                 self.n_dense, x, positions, kv_pos, idx,
+                                 cache["stack"], rows, aux)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         logits = x @ head.to(x.dtype)
-        return logits, cache, torch.zeros((), dtype=torch.float32,
-                                          device=dev)
+        return logits, cache, aux

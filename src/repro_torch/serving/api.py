@@ -916,7 +916,9 @@ def _model_on(cfg, model: Optional[DecoderModel], params: Optional[Dict],
               device) -> Tuple[DecoderModel, Dict]:
     """The model and params real executors share, checked to lie on
     ``device``. Without ``model`` and ``params`` the weights are drawn on
-    ``device`` from a ``torch.Generator`` seeded 0."""
+    ``device`` from a ``torch.Generator`` seeded 0. A model built here
+    runs its MoE layers without capacity drops (``exact_moe``), as the
+    JAX package's serving builds do."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("real executors: no CUDA device (pass "
@@ -924,9 +926,10 @@ def _model_on(cfg, model: Optional[DecoderModel], params: Optional[Dict],
     if model is None:
         if params is None:
             gen = torch.Generator(device=device).manual_seed(0)
-            model = DecoderModel(cfg, device=device, generator=gen)
+            model = DecoderModel(cfg, device=device, generator=gen,
+                                 exact_moe=True)
         else:
-            model = DecoderModel(cfg, params, device=device)
+            model = DecoderModel(cfg, params, device=device, exact_moe=True)
     check_device(model.params, device, "model.params")
     if params is None:
         params = model.params

@@ -63,9 +63,13 @@ FAMILIES = {
     "qwen3-32b": {},
     "gemma3-27b": {},
     "qwen2-vl-72b": {},
+    "deepseek-v2-236b": {},
+    "kimi-k2-1t-a32b": {},
 }
 PAGED = ["qwen2-7b", "starcoder2-15b", "qwen3-32b"]
 SLOT_ONLY = ["gemma3-27b", "qwen2-vl-72b"]
+# MoE families (tests/test_torch_moe.py, test_torch_mla.py): slot only too
+MOE = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -305,10 +309,11 @@ def test_slot_matches_jax_slot(arch, staggered):
     _compare(got, want)
 
 
-@pytest.mark.parametrize("arch", SLOT_ONLY)
+@pytest.mark.parametrize("arch", SLOT_ONLY + MOE)
 def test_paged_executor_refuses_as_jax(arch):
-    """Windows and embedding input keep the paged executor out, in both
-    packages, with the same message."""
+    """Windows, embedding input and MoE stacks (with their dense first
+    layers and MLA) keep the paged executor out, in both packages, with
+    the same message."""
     fam = _setup(arch)
     with pytest.raises(NotImplementedError) as got:
         PagedRealExecutor(fam.model)

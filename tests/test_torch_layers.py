@@ -19,6 +19,7 @@ from repro.models import build_model
 from repro.models import layers as jax_layers
 from repro.models import rope as jax_rope
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.executor import PagedRealExecutor
 from repro_torch.models import bridge, layers, rope, transformer
 from repro_torch.models.transformer import DecoderModel, init_params
 
@@ -212,8 +213,11 @@ def test_param_shapes_match_jax_init_params(arch):
         assert t.dtype == (torch.float32 if norm else torch.bfloat16), key
 
 
-# one refusal per family still to be ported (ROADMAP.md queue 1 items 7-10)
-UNPORTED = {"kimi-k2-1t-a32b": "MoE + MLA", "deepseek-v2-236b": "MoE + MLA",
+# what each family still refuses: its parameters, for the families still
+# to be ported (ROADMAP.md queue 1 items 8 and 10), or the paged executor,
+# for the MoE families that serve on the slot executor only (the JAX
+# package's paged executor refuses them too)
+UNPORTED = {"kimi-k2-1t-a32b": "paged", "deepseek-v2-236b": "paged",
             "mamba2-780m": "SSM", "hymba-1.5b": "hybrid",
             "whisper-base": "encoder-decoder"}
 
@@ -221,7 +225,12 @@ UNPORTED = {"kimi-k2-1t-a32b": "MoE + MLA", "deepseek-v2-236b": "MoE + MLA",
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_refuse(arch):
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 items 7-10"):
+    if UNPORTED[arch] == "paged":
+        model = DecoderModel(cfg, device="cpu", generator=torch.Generator())
+        with pytest.raises(NotImplementedError, match="executor='real'"):
+            PagedRealExecutor(model)
+        return
+    with pytest.raises(NotImplementedError, match="queue 1 items 8 and 10"):
         transformer.param_shapes(cfg)
     with pytest.raises(NotImplementedError, match="queue 1"):
         DecoderModel(cfg, device="cpu", generator=torch.Generator())

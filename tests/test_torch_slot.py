@@ -16,7 +16,6 @@ llama3-8b smoke weights drawn by JAX from PRNGKey(0) and bridged over:
     that take part in a forward, the JAX package every row, so the two
     are not bit-identical.
 """
-import dataclasses
 import types
 
 import jax
@@ -277,14 +276,14 @@ def test_forward_matches_jax_prefill_and_decode(setup):
 
 
 def test_forward_refuses_what_is_not_ported(setup):
-    """Training waits for the training slice; MoE (like SSM, MLA and
+    """Training waits for the training slice; SSM (like hybrid and
     encoder-decoder) is refused when its parameters are laid out."""
     with pytest.raises(NotImplementedError, match="training"):
         setup.model.forward(setup.model.params, torch.zeros((1, 1)),
                             None, torch.zeros((1,)), train=True)
-    moe = dataclasses.replace(setup.cfg, n_experts=4, top_k=2)
+    ssm = get_config("mamba2-780m", smoke=True)
     with pytest.raises(NotImplementedError, match="queue 1"):
-        DecoderModel(moe, device="cpu", generator=torch.Generator())
+        DecoderModel(ssm, device="cpu", generator=torch.Generator())
 
 
 # ---------------------------------------------------------------------------
