@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -66,7 +66,23 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    expert fails by >= 10x (median over the tokens), and capacity mode's
    dropped pairs; then (8d)
    the launcher with ``--arch deepseek-v2-236b --smoke --executor real``
-   in a subprocess. Phase 8 launches no kernel of the repo.
+   in a subprocess. Phase 8 launches no kernel of the repo;
+9. the SSM, hybrid and encoder-decoder families on the slot executor
+   (the paged executor refuses them in both packages), each drawn on the
+   card from seed 0 in bf16 at full width and full depth and served by
+   Cronus on phase 3's requests through ``ServeSpec(arch=...,
+   executor="real", max_slots=8, s_kv=2560, block_size=320)
+   .build(device="cuda")``, freed before the next: (9a) mamba2-780m,
+   (9b) hymba-1.5b, (9c) whisper-base (each request with encoder inputs
+   ``[1500, 512]`` from numpy seed ``ENC_SEED``); after each, (9d) its
+   PPI->CPI payload (SSM state; KV + SSM state; cross-KV + KV) moved by
+   ``extract_kv``/``inject_kv`` into a fresh executor, which finishes the
+   prefill and decodes 4 steps, held by phase 4's rule to one executor
+   running the same chunks (whisper's payload with zeroed cross-KV must
+   fail it); (9e) ``ssd_chunked`` against ``ssd_ref`` at mamba2's and
+   hymba's head widths in fp32; (9f) the launcher with ``--arch
+   hymba-1.5b --smoke --executor real`` in a subprocess. Phase 9
+   launches neither kernel of the repo.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -132,6 +148,8 @@ LOGIT_TOL = 0.125
 
 # requests served by phases 3 and 4
 N_REQUESTS = 8
+# numpy seed of the encoder inputs of phase 9c's whisper requests
+ENC_SEED = 9
 
 # (H, Kv) at D = 128 of the dense families served on the paged path:
 # qwen2-7b and deepseek-coder-33b (G = 7), qwen3-32b (G = 8),
@@ -576,15 +594,21 @@ def phase_kernels(torch):
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
 
-def make_requests(n, vocab, seed=0, output_len=32):
-    """``n`` prompts of 256-2048 tokens from a numpy seed, all at t=0."""
+def make_requests(n, vocab, seed=0, output_len=32, enc_shape=None):
+    """``n`` prompts of 256-2048 tokens from a numpy seed, all at t=0;
+    with ``enc_shape`` (an encoder-decoder's ``(frames, d_model)``), each
+    also carries encoder-input embeddings from a second numpy seed, so
+    the prompts stay the same."""
     from repro_torch.core.request import Request
     rng = np.random.default_rng(seed)
+    enc_rng = np.random.default_rng(ENC_SEED)
     lens = rng.integers(256, 2049, n)
     return [Request(req_id=f"r{i}",
                     prompt=rng.integers(0, vocab, int(n_tok)).astype(
                         np.int32),
-                    output_len=output_len, arrival=0.0)
+                    output_len=output_len, arrival=0.0,
+                    enc_emb=None if enc_shape is None else
+                    enc_rng.standard_normal(enc_shape).astype(np.float32))
             for i, n_tok in enumerate(lens)]
 
 
@@ -909,14 +933,22 @@ def phase_parity(torch, n_requests=N_REQUESTS, arch="llama3-8b",
 
 
 def _compare_rows(got, want, what):
-    """Hold two runs' emitted logits rows to each other: every compared
-    step within ``LOGIT_TOL``; a token may differ only at a near-tie
-    (both picks within ``GREEDY_TIE_MARGIN`` plus the step's logit
-    difference of the top), after which that request is compared no
-    further (the streams diverge)."""
+    """Hold two runs' emitted logits rows to each other under
+    :func:`_rows_rule`; fail if it does not hold."""
+    reason = _rows_rule(got, want, what)
+    if reason is not None:
+        _fail(reason)
+
+
+def _rows_rule(got, want, what):
+    """Phase 4's rule: every compared step within ``LOGIT_TOL``; a token
+    may differ only at a near-tie (both picks within ``GREEDY_TIE_MARGIN``
+    plus the step's logit difference of the top), after which that
+    request is compared no further (the streams diverge). Returns None if
+    it holds, else why not."""
     from repro_torch.core.executor import GREEDY_TIE_MARGIN
     if set(got) != set(want):
-        _fail(f"{what}: the runs emitted different (request, token) sets")
+        return f"{what}: the runs emitted different (request, token) sets"
     max_diff, agree, total, ties = 0.0, 0, 0, 0
     by_req = {}
     for key in sorted(got):
@@ -933,15 +965,16 @@ def _compare_rows(got, want, what):
             slack = GREEDY_TIE_MARGIN + diff
             if not all(row[t] >= row.max() - slack
                        for row in (la, lb) for t in (ta, tb)):
-                _fail(f"{what}: token {key} differs ({ta} vs {tb}) "
-                      f"without a near-tie")
+                return (f"{what}: token {key} differs ({ta} vs {tb}) "
+                        f"without a near-tie")
             ties += 1
             break                            # the streams diverge after
     log(f"{what}: {total} compared steps, max |logit diff| {max_diff:.4f} "
         f"(tol {LOGIT_TOL}), tokens agree {agree}/{total}, near-tie "
         f"divergences {ties}")
     if not (max_diff <= LOGIT_TOL):
-        _fail(f"{what}: logits differ by {max_diff} > {LOGIT_TOL}")
+        return f"{what}: logits differ by {max_diff} > {LOGIT_TOL}"
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -992,7 +1025,8 @@ def _serve(torch, spec, model, n_requests, profile=None):
     recs = [Recorder(torch, e.name, e, profile=(profile or {}).get(e.name))
             for e in service.engines]
     cfg = get_config(spec.arch) if model is None else model.cfg
-    reqs = make_requests(n_requests, cfg.vocab_size)
+    reqs = make_requests(n_requests, cfg.vocab_size, enc_shape=(
+        (cfg.enc_seq_len, cfg.d_model) if cfg.enc_dec else None))
     res, wall, launches = _counted(torch, lambda: service.run(reqs))
     return service, recs, res, wall, launches, reqs
 
@@ -1168,7 +1202,7 @@ def _describe(cfg, full):
                                        for i in range(cfg.n_layers)]))
     if cfg.mrope_sections:
         extra.append(f"M-RoPE {cfg.mrope_sections}")
-    from repro_torch.models.transformer import param_shapes
+    from repro_torch.models.api import param_shapes
 
     def count(tree):
         return sum(count(v) if isinstance(v, dict) else math.prod(v)
@@ -1433,6 +1467,194 @@ def phase_moe(torch, n_requests=N_REQUESTS):
     _launcher(LAUNCH_ARGS_8D, "[phase 8d]")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: SSM, hybrid and encoder-decoder on the slot executor
+# ---------------------------------------------------------------------------
+
+# (run, arch, what its PPI->CPI payload carries), each at full width and
+# full depth
+SSM_RUNS = (
+    ("9a", "mamba2-780m", "SSM state h/conv"),
+    ("9b", "hymba-1.5b", "attention k/v + SSM state h/conv"),
+    ("9c", "whisper-base", "cross-KV + self-attention k/v"),
+)
+# 9d: decode steps after the payload check's prefill
+PAYLOAD_STEPS = 4
+# 9e: the SSD scan against its oracle, (name, H, P, N) at chunk 64 on
+# B x T tokens, fp32; the rule of tests/test_ssm.py:
+# |got - want| <= SSD_TOL + SSD_TOL * |want|
+SSD_SHAPES = (("mamba2-780m", 48, 64, 128), ("hymba-1.5b", 50, 64, 16))
+SSD_B, SSD_T, SSD_CHUNK, SSD_TOL = 2, 512, 64, 1e-4
+# the launcher run of phase 9f
+LAUNCH_ARGS_9F = ["--arch", "hymba-1.5b", "--smoke", "--executor", "real",
+                  "--n-requests", "4", "--scale", "0.02", "--device", "cuda"]
+
+
+def _state_text(cfg):
+    """The recurrent / cross-attention state of a config, for phase 9."""
+    from repro_torch.models.ssm import ssm_dims
+    if cfg.enc_dec:
+        per_slot = (2 * cfg.n_layers * cfg.enc_seq_len * cfg.n_kv_heads
+                    * cfg.head_dim * 2)
+        return (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+                f"layers, {cfg.enc_seq_len} encoder frames; cross-KV "
+                f"{per_slot / 1e6:.1f} MB a slot")
+    _, h, p, n, conv_dim = ssm_dims(cfg)
+    per_slot = cfg.n_layers * (h * p * n * 4 + (cfg.ssm_conv_width - 1)
+                               * conv_dim * 2)
+    return (f"SSM heads {h} x P {p} x N {n}, conv {conv_dim} wide, chunk "
+            f"{cfg.ssm_chunk}; h + conv {per_slot / 1e6:.1f} MB a slot")
+
+
+def _payload_check(torch, tag, model, req, what):
+    """(9d) One executor prefills the first part of ``req``'s prompt;
+    ``extract_kv`` -> ``inject_kv`` moves it to another slot of a fresh
+    executor, which finishes the prefill and decodes PAYLOAD_STEPS
+    tokens. A third executor runs the same two chunks and steps in one
+    slot. The two runs' logits must meet phase 4's rule; for an
+    encoder-decoder, the payload with its cross-KV zeroed must not."""
+    from repro_torch.core.executor import RealExecutor
+    prompt, enc = req.prompt, req.enc_emb
+    split = len(prompt) * 2 // 5
+
+    def serve(ex, slot, token):
+        rows = {("p", 0): (ex.last_logits[0].copy(), token)}
+        for t in range(PAYLOAD_STEPS):
+            token = ex.decode({slot: token}, {slot: len(prompt) + t})[slot]
+            rows[("p", t + 1)] = (ex.last_logits[0].copy(), token)
+        return rows
+
+    one = RealExecutor(model, max_slots=1, s_kv=S_KV)
+    one.prefill_chunk(0, prompt[:split], 0, False, enc_emb=enc)
+    want = serve(one, 0, one.prefill_chunk(0, prompt[split:], split, True))
+    del one
+    ppi = RealExecutor(model, max_slots=2, s_kv=S_KV)
+    ppi.prefill_chunk(1, prompt[:split], 0, False, enc_emb=enc)
+    payload = ppi.extract_kv(1, split)
+    del ppi
+
+    def size(tree):
+        return sum(size(v) if isinstance(v, dict) else
+                   v.numel() * v.element_size()
+                   for k, v in tree.items() if k != "_upto")
+    nbytes = size(payload)
+    cases = [("payload", payload)]
+    if "cross_k" in payload:
+        cases.append(("cross-KV zeroed", dict(
+            payload, cross_k=torch.zeros_like(payload["cross_k"]),
+            cross_v=torch.zeros_like(payload["cross_v"]))))
+    for name, pl in cases:
+        cpi = RealExecutor(model, max_slots=3, s_kv=S_KV)
+        cpi.inject_kv(2, pl, split)
+        got = serve(cpi, 2, cpi.prefill_chunk(2, prompt[split:], split,
+                                              True))
+        del cpi
+        reason = _rows_rule(got, want, f"{tag} {name} ({what}, "
+                            f"{nbytes / 1e6:.1f} MB for {split} of "
+                            f"{len(prompt)} tokens) vs one executor")
+        if name == "payload" and reason is not None:
+            _fail(reason)
+        if name != "payload":
+            if reason is None:
+                _fail(f"{tag} the check passed with the cross-KV zeroed")
+            log(f"{tag} with the cross-KV zeroed the rule fails, as it "
+                f"must: {reason}")
+    _free(torch)
+
+
+def _ssd_check(torch):
+    """(9e) ``ssd_chunked`` against the token-recurrent ``ssd_ref`` on the
+    card at mamba2's and hymba's head widths, fp32 with TF32 off, from a
+    nonzero initial state."""
+    import torch.nn.functional as F
+    from repro_torch.models.ssm import ssd_chunked, ssd_ref
+    for name, h, p, n in SSD_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x, dt = draw(SSD_B, SSD_T, h, p), F.softplus(draw(SSD_B, SSD_T, h))
+        a_neg = -torch.exp(draw(h) * 0.3)
+        b_in, c_in = draw(SSD_B, SSD_T, n), draw(SSD_B, SSD_T, n)
+        h0 = draw(SSD_B, h, p, n) * 0.1
+        args = (x, dt * 0.1, a_neg, b_in, c_in, h0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, hf = ssd_chunked(*args, SSD_CHUNK)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        yr, hr = ssd_ref(*args)
+        worst = []
+        for got, want in ((y, yr), (hf, hr)):
+            err = (got - want).abs()
+            worst.append((err.max().item(), (err / (SSD_TOL + SSD_TOL
+                                                     * want.abs())).max()
+                          .item()))
+        log(f"[phase 9e] ssd_chunked vs ssd_ref at {name}'s widths (H {h}, "
+            f"P {p}, N {n}, chunk {SSD_CHUNK}), B {SSD_B} x {SSD_T} tokens "
+            f"fp32, h0 != 0: y max abs err {worst[0][0]:.3e}, h_final "
+            f"{worst[1][0]:.3e}; max err/tol {max(r for _, r in worst):.4f} "
+            f"(tol {SSD_TOL:g} + {SSD_TOL:g}*|want|, passes at <= 1); "
+            f"ssd_chunked {1e3 * secs:.3f} ms (host clock, first call)")
+        if not max(r for _, r in worst) <= 1.0:
+            _fail(f"[phase 9e] ssd_chunked vs ssd_ref at {name}'s widths")
+
+
+def phase_ssm(torch, n_requests=N_REQUESTS):
+    """The SSM, hybrid and encoder-decoder families at full width and full
+    depth on the slot executor, drawn on the card from seed 0 in bf16 and
+    served by Cronus through ``ServeSpec(arch=..., executor="real")
+    .build()``, one after another: (9a) mamba2-780m, (9b) hymba-1.5b,
+    (9c) whisper-base, each followed by (9d) its PPI->CPI payload check;
+    then (9e) the SSD scan against its oracle and (9f) the launcher on
+    hymba's smoke config. No kernel of the repo runs here (the paged
+    executor refuses these models)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import PagedRealExecutor
+    from repro_torch.serving.api import ServeSpec
+    for run, arch, what in SSM_RUNS:
+        tag = f"[phase {run}]"
+        cfg = get_config(arch)
+        log(f"{tag} {_describe(cfg, cfg)}; {_state_text(cfg)}")
+        spec = ServeSpec(arch=arch, approach="cronus", executor="real",
+                         max_slots=SLOTS, s_kv=S_KV, block_size=MOE_BLOCK)
+        torch.cuda.reset_peak_memory_stats()
+        # phase 3's calls run under the profiler (and out of the timings)
+        service, recs, res, wall, launches, reqs = _serve(
+            torch, spec, None, n_requests, profile=PROFILE)
+        _family_report(torch, f"{tag} cronus slot executor ({SLOTS} slots "
+                       f"x {S_KV} positions, ServeSpec.build)", recs, res,
+                       wall, launches, reqs, "real", n_requests)
+        if any(launches.values()):
+            _fail(f"{tag} a kernel of the repo launched: {launches}")
+        if not any(0 < r.partial_len < r.input_len for r in reqs):
+            _fail(f"{tag} no request was split between PPI and CPI")
+        chunk = PROFILE["ppi"]["prefill"][0]
+        chunks = [t for r in recs for t in r.chunk_s.get(chunk, [])]
+        steps = [t for r in recs if r.name == "cpi" for t in r.step_s]
+        unprofiled = {"prefill": (statistics.median(chunks) if chunks
+                                  else None, f"{chunk}-token chunk"),
+                      "decode": (statistics.median(steps) if steps else None,
+                                 "CPI decode step")}
+        for p in (p for r in recs for p in r.profiles):
+            _report_profile(p, *unprofiled[p.kind], tag=tag)
+        model = service.engines[0].executor.model
+        try:
+            PagedRealExecutor(model)
+        except NotImplementedError as e:
+            log(f"{tag} PagedRealExecutor refuses it, as the JAX "
+                f"package's does: {e}")
+        else:
+            _fail(f"{tag} PagedRealExecutor accepted {cfg.name}")
+        del service, recs
+        _free(torch)
+        _payload_check(torch, f"[phase 9d] {arch}", model, reqs[0], what)
+        del model, reqs
+        _free(torch)
+    _ssd_check(torch)
+    _launcher(LAUNCH_ARGS_9F, "[phase 9f]")
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -1454,7 +1676,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1493,6 +1715,8 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
     if 8 in phases:
         timed(8, phase_moe, torch)
+    if 9 in phases:
+        timed(9, phase_ssm, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

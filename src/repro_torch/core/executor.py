@@ -138,12 +138,30 @@ class RealExecutor:
     Eager PyTorch recompiles nothing, so the port writes only the real
     tokens; ``compile_stats`` still counts the JAX package's buckets.
 
-    Supported model families: those
-    :class:`~repro_torch.models.transformer.DecoderModel` lays out so
-    far: dense-attention stacks ("mlp" kind: sliding windows, qk-norm
-    and M-RoPE included) and MoE stacks with leading dense layers, GQA or
-    MLA attention (deepseek-v2, kimi-k2). The SSM-state restore and the
-    cross-KV install of the JAX executor come with those families.
+    Supported model families: every family of the registry: dense
+    stacks (sliding windows, qk-norm and M-RoPE included), MoE stacks
+    with leading dense layers and GQA or MLA attention, SSM and hybrid
+    stacks, and the encoder-decoder (whisper).
+
+    Recurrent state: the JAX executor runs every slot's row and restores
+    ``h``/``conv`` of the slots that sat out. A forward here reads and
+    writes only the rows of the slots that take part, so no restore is
+    needed; ``reset_slot`` zeroes a freed slot's state, which no
+    position masks.
+
+    Cross-KV: a prefill chunk that carries ``enc_emb`` (a request's first)
+    runs the encoder on that request alone and installs its cross-KV into
+    the slot's row, in place.
+
+    MoE in capacity mode (``exact_moe=False``; serving builds with
+    ``exact_moe=True`` in both packages, which drops nothing): the JAX
+    executor forwards ``max_slots`` rows at the padded width, so the drop
+    rule ranks padding and idle slots' garbage rows together with real
+    tokens (``t = max_slots * bucket`` tokens compete for capacity). The
+    port forwards only the real tokens of the slots that take part, so
+    its capacity and drops follow those tokens alone: equal to JAX's when
+    one slot's chunk fills its bucket exactly, and to the port's own
+    unpadded run otherwise.
     """
 
     def __init__(self, model, params=None, *, max_slots: int, s_kv: int,
@@ -173,8 +191,8 @@ class RealExecutor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
-    def _run(self, slots, inputs: np.ndarray,
-             positions: np.ndarray) -> torch.Tensor:
+    def _run(self, slots, inputs: np.ndarray, positions: np.ndarray,
+             decode: bool = False) -> torch.Tensor:
         """Forward the rows of ``slots`` (inputs/positions ``[n, cb]``)
         against the cache; returns logits ``[n, cb, V]``."""
         rows = np.asarray(slots, np.int64)
@@ -182,9 +200,25 @@ class RealExecutor:
             self.params, self._tensor(inputs, torch.long), self.cache,
             self._tensor(self.lens[rows]),
             positions=self._tensor(positions),
-            kv_positions=self._tensor(self.pos[rows]),
+            kv_positions=self._tensor(self.pos[rows]), decode=decode,
             rows=self._tensor(rows, torch.long))
         return logits
+
+    def _install_cross_kv(self, slot: int, enc_emb) -> None:
+        """Encode one request's frames and write its cross-KV into the
+        slot's row, in place (other slots untouched)."""
+        want = self.cache["cross_k"].shape[2]
+        if enc_emb.shape[0] != want:
+            raise ValueError(
+                "encoder input length must match the cross-KV cache "
+                f"({enc_emb.shape[0]} vs {want}); pad/crop the "
+                "frontend-stub embeddings to enc_seq_len")
+        emb = torch.as_tensor(np.asarray(enc_emb, np.float32),
+                              device=self.device)
+        enc_out = self.model.encode(self.params, emb[None])
+        ck, cv = self.model.compute_cross_kv(self.params, enc_out)
+        self.cache["cross_k"][:, slot] = ck[:, 0]
+        self.cache["cross_v"][:, slot] = cv[:, 0]
 
     @torch.no_grad()
     def prefill_chunk(self, slot: int, tokens: np.ndarray, ctx_len: int,
@@ -200,6 +234,8 @@ class RealExecutor:
         positions = ctx_len + np.arange(c, dtype=np.int32)
         # mark the new positions valid for this slot (host side)
         self.pos[slot, positions % self.s_kv] = positions
+        if enc_emb is not None and self.cfg.enc_dec:
+            self._install_cross_kv(slot, enc_emb)
         logits = self._run([slot], np.asarray(tokens, np.int32)[None],
                            positions[None])
         self.lens[slot] = ctx_len + c
@@ -221,7 +257,7 @@ class RealExecutor:
             inputs[i, 0] = slot_tokens[s]
             positions[i, 0] = slot_lens[s]
             self.pos[s, slot_lens[s] % self.s_kv] = slot_lens[s]
-        logits = self._run(slots, inputs, positions)
+        logits = self._run(slots, inputs, positions, decode=True)
         self.last_logits = logits[:, 0].float().cpu().numpy()
         out = {}
         for i, s in enumerate(slots):
@@ -235,9 +271,12 @@ class RealExecutor:
     # first ``upto`` positions are valid at extract time, so only they
     # travel — the PPI->CPI payload is sized by the partial prefill, not
     # by the slot width. An MoE model's leading dense layers keep their
-    # own cache subtree ("dense"), which travels beside "stack".
+    # own cache subtree ("dense"), which travels beside "stack". The
+    # recurrent state (SSM h/conv: conv's second axis is kernel taps, not
+    # positions) and the encoder-decoder's cross-KV move whole.
     _SEQ_KEYS = frozenset(("k", "v", "ckv", "kpe"))
     _LAYER_GROUPS = ("stack", "dense")
+    _CROSS_KEYS = ("cross_k", "cross_v")
 
     def extract_kv(self, slot: int, upto: int):
         """Pull one slot's cache slices (the PPI->CPI payload): a copy on
@@ -250,6 +289,9 @@ class RealExecutor:
         payload = {group: {k: take(k, a)
                            for k, a in self.cache[group].items()}
                    for group in self._LAYER_GROUPS if group in self.cache}
+        for k in self._CROSS_KEYS:
+            if k in self.cache:
+                payload[k] = take(k, self.cache[k])
         payload["_upto"] = upto
         return payload
 
@@ -265,15 +307,25 @@ class RealExecutor:
                     dst[:, slot, :src.shape[1]] = src
                 else:
                     dst[:, slot] = src
+        for k in self._CROSS_KEYS:
+            if k in payload:
+                self.cache[k][:, slot] = payload[k].to(
+                    device=self.device, dtype=self.cache[k].dtype)
         self.pos[slot, :] = -1
         self.pos[slot, :upto] = np.arange(upto)
         self.lens[slot] = upto
 
+    @torch.no_grad()
     def reset_slot(self, slot: int):
-        """Forget the slot's positions: its cache rows become garbage that
-        no position marks valid."""
+        """Forget the slot's positions: its attention rows become garbage
+        that no position marks valid. Recurrent state (SSM/hybrid) has no
+        positional validity, so its ``h``/``conv`` are zeroed."""
         self.pos[slot, :] = -1
         self.lens[slot] = 0
+        stack = self.cache["stack"]
+        for k in ("h", "conv"):
+            if k in stack:
+                stack[k][:, slot] = 0
 
 
 class PagedRealExecutor:
@@ -320,15 +372,15 @@ class PagedRealExecutor:
     def __init__(self, model, params=None, *,
                  use_kernels: Optional[bool] = None):
         cfg = model.cfg
+        if cfg.enc_dec or cfg.embeddings_input:
+            raise NotImplementedError(
+                "PagedRealExecutor does not support encoder/decoder or "
+                "embedding-input models; use executor='real'")
         kind = model._stack_kind()
         if kind != "mlp" or model.is_mla or model.n_dense:
             raise NotImplementedError(
                 f"PagedRealExecutor supports dense-attention stacks only "
                 f"(got stack kind {kind!r}); use executor='real'")
-        if cfg.enc_dec or cfg.embeddings_input:
-            raise NotImplementedError(
-                "PagedRealExecutor does not support encoder/decoder or "
-                "embedding-input models; use executor='real'")
         if any(cfg.layer_window(i) for i in range(cfg.n_layers)):
             raise NotImplementedError(
                 "PagedRealExecutor does not support sliding-window layers "

@@ -3,9 +3,10 @@
 The counterpart of the JAX package's ``models/attention.py`` for the slot
 executor's serving path: parameter shapes, the ring write into the cache,
 the position mask, softmax attention (plain and blocked), the GQA
-attention block and DeepSeek-V2's MLA block over a latent cache. The
-paged executor's attention runs in :mod:`repro_torch.kernels` instead.
-The encoder/cross attention is still to be ported.
+attention block, DeepSeek-V2's MLA block over a latent cache, and the
+encoder-decoder's bidirectional encoder attention and cross attention.
+The paged executor's attention runs in :mod:`repro_torch.kernels`
+instead.
 
 Unified cache semantics
 -----------------------
@@ -307,3 +308,48 @@ def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
     out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].float())
     out = out.reshape(b, sq, h * hd_v).to(x.dtype) @ p["wo"].to(x.dtype)
     return out, layer_cache
+
+
+# ---------------------------------------------------------------------------
+# encoder (bidirectional, no cache) and cross attention: the whisper
+# backbone
+# ---------------------------------------------------------------------------
+
+def encoder_attention(p: Dict, cfg, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention over the whole input, no cache: x
+    [B,S,d], positions [B,S] (for RoPE) -> [B,S,d]."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+    q = position_encode(q, positions, cfg)
+    k = position_encode(k, positions, cfg)
+    mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=x.device)
+    out = gqa_attend(q, k, v, mask, hd ** -0.5)
+    return out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+
+
+def cross_attention(p: Dict, cfg, x: torch.Tensor, k_enc: torch.Tensor,
+                    v_enc: torch.Tensor) -> torch.Tensor:
+    """x [B,Sq,d]; k_enc/v_enc [B,S_enc,Kv,D] (computed once at prefill)
+    -> [B,Sq,d]. Every query sees every encoder position; no RoPE."""
+    b, sq, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, h, hd)
+    mask = torch.ones((b, 1, sq, k_enc.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = gqa_attend(q, k_enc, v_enc, mask, hd ** -0.5)
+    return out.reshape(b, sq, h * hd) @ p["wo"].to(x.dtype)
+
+
+def cross_kv(p: Dict, cfg, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's cross-attention K and V ``[B,S_enc,Kv,D]`` from the
+    encoder output ``[B,S_enc,d]``."""
+    b, s, _ = enc_out.shape
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
+    return k, v

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX ``DecoderModel.init_params`` pytree as torch
-parameters.
+"""Weight bridge: the JAX ``init_params`` pytree (``DecoderModel`` or
+``EncDecModel``) as torch parameters.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so parity tests draw the weights once in JAX, turn the pytree into
@@ -13,8 +13,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import (NORM_KEYS, model_dtype,
-                                            param_shapes)
+from repro_torch.models.api import param_shapes
+from repro_torch.models.transformer import FP32_KEYS, model_dtype
 
 
 def params_from_numpy(tree: Dict, cfg, *, device,
@@ -23,7 +23,8 @@ def params_from_numpy(tree: Dict, cfg, *, device,
     ``device``.
 
     Weight matrices and the embedding go to ``dtype`` (default: the
-    config's); norm weights stay fp32. The stacked ``[L, ...]`` leaves and
+    config's); norm weights and the SSM's per-head constants stay fp32
+    (``FP32_KEYS``). The stacked ``[L, ...]`` leaves and
     the ``[in, out]`` layout are kept as they are. Raises ``ValueError``
     when a key is missing or extra, or a shape differs from the config's.
     """
@@ -42,7 +43,7 @@ def params_from_numpy(tree: Dict, cfg, *, device,
             if arr.shape != tuple(want):
                 raise ValueError(f"params{path}[{k!r}]: shape {arr.shape} "
                                  f"!= expected {tuple(want)}")
-            dt = torch.float32 if k in NORM_KEYS else dtype
+            dt = torch.float32 if k in FP32_KEYS else dtype
             # np.array copies: JAX hands over read-only buffers
             out[k] = torch.from_numpy(np.array(arr, np.float32)).to(
                 device=device, dtype=dt)

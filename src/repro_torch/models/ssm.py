@@ -1,0 +1,229 @@
+"""Mamba2 / SSD (state-space duality) blocks: chunked scan and recurrent
+decode.
+
+The counterpart of the JAX package's ``models/ssm.py``. The SSD chunked
+algorithm (arXiv:2405.21060) splits the sequence into chunks of length Q:
+the intra-chunk terms are attention-like products, the inter-chunk terms a
+small recurrence over chunk states. The scan starts from a state ``h0``,
+which is what a partially disaggregated prefill needs: the PPI ships its
+SSM state (``[H, P, N]`` a layer) instead of a KV prefix, and the CPI's
+chunked prefill resumes the scan from it.
+
+The JAX package's inter-chunk ``lax.scan`` is a loop over the chunks
+here, and the intra-chunk three-operand product takes ``C·B`` times the
+decay matrix first, so no ``[B, nc, Q, Q, H, P]`` tensor is built. Casts
+follow the JAX package: ``dt`` in fp32 through ``softplus``, the scan in
+fp32, ``y`` back to the compute dtype, ``D`` cast to ``y``'s dtype and the
+gated RMSNorm in fp32 with ``(1 + w)``.
+
+Cache layout per layer: ``{'h': [B, H, P, N] fp32, 'conv': [B, W-1,
+conv_dim]}`` in the model's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import rmsnorm
+
+
+def ssm_dims(cfg) -> Tuple[int, int, int, int, int]:
+    """``(d_inner, n_heads, head_dim P, state N, conv_dim)`` of a config;
+    the convolution runs over (x, B, C) with one group."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = cfg.ssm_n_heads or max(1, d_inner // cfg.ssm_head_dim)
+    p = d_inner // n_heads
+    n = cfg.ssm_state
+    conv_dim = d_inner + 2 * n
+    return d_inner, n_heads, p, n, conv_dim
+
+
+def ssm_shapes(cfg, n_layers: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of ``n_layers`` stacked SSM blocks (the JAX ``init_ssm``):
+    ``in_proj [d, 2·d_inner + 2N + H]`` (z, x, B, C, dt), the depthwise
+    ``conv_w [W, conv_dim]`` and ``conv_b``, ``A_log``, ``D`` and
+    ``dt_bias`` per head, the gated norm over ``d_inner`` and
+    ``out_proj [d_inner, d]``."""
+    d, n = cfg.d_model, n_layers
+    d_inner, h, _, ns, conv_dim = ssm_dims(cfg)
+    return {"in_proj": (n, d, 2 * d_inner + 2 * ns + h),
+            "conv_w": (n, cfg.ssm_conv_width, conv_dim),
+            "conv_b": (n, conv_dim), "A_log": (n, h), "D": (n, h),
+            "dt_bias": (n, h), "gate_norm": (n, d_inner),
+            "out_proj": (n, d_inner, d)}
+
+
+# the JAX ``init_ssm``'s fixed leaves as functions of their last width
+# (fp32); ``conv_w`` is drawn at scale 0.3
+SSM_FIXED_INIT = {
+    "A_log": lambda h: torch.log(torch.linspace(1.0, 16.0, h)),
+    "D": lambda h: torch.ones(h),
+    "dt_bias": lambda h: torch.full((h,), math.log(math.expm1(0.01))),
+    "conv_b": lambda c: torch.zeros(c),
+}
+SSM_INIT_SCALE = {"conv_w": 0.3}
+# they stay fp32 whatever the model dtype (as the gated norm's weight
+# does): in bf16, log(linspace(1, 16)) and log(expm1(0.01)) ~ -4.60
+# would change value, and every dt with them
+FP32_SSM_KEYS = frozenset(SSM_FIXED_INIT)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+                b_in: torch.Tensor, c_in: torch.Tensor, h0: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,H,P]; dt [B,S,H] (>0); a_neg [H] (<0); b_in, c_in [B,S,N];
+    h0 [B,H,P,N]. Returns (y [B,S,H,P] in x's dtype, h_final [B,H,P,N]
+    fp32). Tokens past ``S`` pad the last chunk with zeros (dt = 0: no
+    decay, no update)."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    q = min(chunk, s)
+    pad = (-s) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_in = F.pad(b_in, (0, 0, 0, pad))
+        c_in = F.pad(c_in, (0, 0, 0, pad))
+    nc = (s + pad) // q
+    xc = x.reshape(bsz, nc, q, h, p).float()
+    dtc = dt.reshape(bsz, nc, q, h).float()
+    bc = b_in.reshape(bsz, nc, q, n).float()
+    cc = c_in.reshape(bsz, nc, q, n).float()
+
+    a_cum = torch.cumsum(dtc * a_neg, dim=2)              # [B,nc,Q,H]
+    xdt = xc * dtc[..., None]                             # [B,nc,Q,H,P]
+
+    # intra-chunk (the "duality" products): (C·B) ⊙ L first, [B,nc,Q,K,H]
+    l_mat = torch.exp(a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :])
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    l_mat = torch.where(causal[None, None, :, :, None], l_mat, 0.0)
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", cb[..., None] * l_mat, xdt)
+
+    # chunk states
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # [B,nc,Q,H]
+    states = torch.einsum("bckn,bckhp->bchpn", bc,
+                          xdt * decay_to_end[..., None])
+
+    # inter-chunk recurrence
+    a_sum = torch.exp(a_cum[:, :, -1, :])                  # [B,nc,H]
+    hprev = h0.float()
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(hprev)
+        hprev = hprev * a_sum[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # [B,nc,H,P,N]
+
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cc, h_prevs) \
+        * torch.exp(a_cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), hprev
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+            b_in: torch.Tensor, c_in: torch.Tensor, h0: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token recurrent oracle for :func:`ssd_chunked`."""
+    hcur = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        y, hcur = _recurrent_step(x[:, t], dt[:, t], a_neg, b_in[:, t],
+                                  c_in[:, t], hcur)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), hcur
+
+
+def _recurrent_step(xt, dtt, a_neg, bt, ct, hprev):
+    """One token of the recurrence in fp32: xt [B,H,P], dtt [B,H], bt, ct
+    [B,N], hprev [B,H,P,N] -> (y [B,H,P], h [B,H,P,N])."""
+    dtt = dtt.float()
+    decay = torch.exp(dtt * a_neg)                         # [B,H]
+    upd = torch.einsum("bh,bn,bhp->bhpn", dtt, bt.float(), xt.float())
+    hnew = hprev.float() * decay[:, :, None, None] + upd
+    return torch.einsum("bn,bhpn->bhp", ct.float(), hnew), hnew
+
+
+# ---------------------------------------------------------------------------
+# full mamba2 block (in_proj -> conv -> SSD -> gated norm -> out_proj)
+# ---------------------------------------------------------------------------
+
+def _split_proj(zxbcdt: torch.Tensor, cfg):
+    d_inner, _, _, _, conv_dim = ssm_dims(cfg)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
+    dt = zxbcdt[..., d_inner + conv_dim:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc: torch.Tensor, conv_cache: torch.Tensor,
+                 w: torch.Tensor, bias: torch.Tensor,
+                 token_mask: Optional[torch.Tensor] = None):
+    """xbc [B,S,C]; conv_cache [B,W-1,C] (carry-in). Returns (out,
+    new_cache).
+
+    ``token_mask`` [B,S]: when the chunk carries trailing padding, the new
+    conv cache holds the last W-1 *valid* inputs, gathered per row at the
+    valid count."""
+    width = w.shape[0]
+    s = xbc.shape[1]
+    full = torch.cat([conv_cache.to(xbc.dtype), xbc], dim=1)
+    # depthwise conv, valid over the padded buffer
+    out = sum(full[:, i:i + s, :] * w[i].to(xbc.dtype) for i in range(width))
+    out = F.silu(out + bias.to(xbc.dtype))
+    if token_mask is None:
+        new_cache = full[:, full.shape[1] - (width - 1):, :]
+    else:
+        n_valid = token_mask.sum(dim=1)                    # [B]
+        idx = n_valid[:, None] + torch.arange(width - 1,
+                                              device=xbc.device)[None, :]
+        new_cache = torch.gather(
+            full, 1, idx[:, :, None].expand(-1, -1, full.shape[2]))
+    return out, new_cache.to(conv_cache.dtype)
+
+
+def ssm_block(p: Dict, cfg, x: torch.Tensor, cache: Dict, *,
+              decode: bool = False,
+              token_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict]:
+    """x [B,S,d]; cache {'h', 'conv'} (the batch's rows) -> (out
+    [B,S,d], new state {'h', 'conv'}); the caller writes the state back.
+
+    ``token_mask`` [B,S] bool: False tokens (padding) must not touch the
+    recurrent state, so their dt is zeroed (decay 1, update 0). Unlike
+    attention, SSM state has no positional mask. ``decode`` with one token
+    takes the recurrent step."""
+    d_inner, h, hp, n, _ = ssm_dims(cfg)
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
+    xbc, new_conv = _causal_conv(xbc, cache["conv"], p["conv_w"],
+                                 p["conv_b"], token_mask=token_mask)
+    x_ssm = xbc[..., :d_inner]
+    b_in = xbc[..., d_inner:d_inner + n]
+    c_in = xbc[..., d_inner + n:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # [B,S,H]
+    if token_mask is not None:
+        dt = torch.where(token_mask[..., None], dt, 0.0)
+    a_neg = -torch.exp(p["A_log"].float())                   # [H]
+
+    bsz, s, _ = x.shape
+    xh = x_ssm.reshape(bsz, s, h, hp)
+    if decode and s == 1:
+        y, h_final = _recurrent_step(xh[:, 0], dt[:, 0], a_neg, b_in[:, 0],
+                                     c_in[:, 0], cache["h"])
+        y = y[:, None].to(xh.dtype)
+    else:
+        y, h_final = ssd_chunked(xh, dt, a_neg, b_in, c_in, cache["h"],
+                                 cfg.ssm_chunk)
+    y = y + xh.float().to(y.dtype) \
+        * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, d_inner)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out, {"h": h_final, "conv": new_conv}

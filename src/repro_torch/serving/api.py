@@ -53,7 +53,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.executor import PagedRealExecutor, RealExecutor
 from repro_torch.core.metrics import RequestMetrics, aggregate
 from repro_torch.core.request import ReqState, Request
-from repro_torch.models.transformer import DecoderModel, check_device
+from repro_torch.models.api import build_model
+from repro_torch.models.transformer import check_device
 from repro_torch.scheduling import SCHEDULERS
 from repro_torch.serving.hardware import DEVICES
 from repro_torch.serving.simulator import APPROACHES, build_system
@@ -912,24 +913,22 @@ def serve(spec: ServeSpec, **replacements) -> InferenceService:
 # real-compute executor factories (the ported part of this module)
 # ---------------------------------------------------------------------------
 
-def _model_on(cfg, model: Optional[DecoderModel], params: Optional[Dict],
-              device) -> Tuple[DecoderModel, Dict]:
-    """The model and params real executors share, checked to lie on
-    ``device``. Without ``model`` and ``params`` the weights are drawn on
-    ``device`` from a ``torch.Generator`` seeded 0. A model built here
-    runs its MoE layers without capacity drops (``exact_moe``), as the
-    JAX package's serving builds do."""
+def _model_on(cfg, model, params: Optional[Dict], device) -> Tuple:
+    """The model (``build_model``'s: a decoder or an encoder-decoder) and
+    params real executors share, checked to lie on ``device``. Without
+    ``model`` and ``params`` the weights are drawn on ``device`` from a
+    ``torch.Generator`` seeded 0. A model built here runs its MoE layers
+    without capacity drops (``exact_moe``), as the JAX package's serving
+    builds do."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("real executors: no CUDA device (pass "
                            "device='cpu' to run on the CPU)")
     if model is None:
-        if params is None:
-            gen = torch.Generator(device=device).manual_seed(0)
-            model = DecoderModel(cfg, device=device, generator=gen,
-                                 exact_moe=True)
-        else:
-            model = DecoderModel(cfg, params, device=device, exact_moe=True)
+        gen = (torch.Generator(device=device).manual_seed(0)
+               if params is None else None)
+        model = build_model(cfg, params, device=device, generator=gen,
+                            exact_moe=True)
     check_device(model.params, device, "model.params")
     if params is None:
         params = model.params
@@ -937,7 +936,7 @@ def _model_on(cfg, model: Optional[DecoderModel], params: Optional[Dict],
     return model, params
 
 
-def paged_executor_factory(cfg, model: Optional[DecoderModel] = None,
+def paged_executor_factory(cfg, model=None,
                            params: Optional[Dict] = None, *,
                            device="cuda",
                            use_kernels: Optional[bool] = None) -> Callable:
@@ -960,7 +959,7 @@ def paged_executor_factory(cfg, model: Optional[DecoderModel] = None,
     return factory
 
 
-def slot_executor_factory(cfg, model: Optional[DecoderModel] = None,
+def slot_executor_factory(cfg, model=None,
                           params: Optional[Dict] = None, *, max_slots: int,
                           s_kv: int, chunk_pad: Optional[int] = None,
                           device="cuda") -> Callable:

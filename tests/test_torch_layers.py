@@ -21,6 +21,7 @@ from repro.models import rope as jax_rope
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.executor import PagedRealExecutor
 from repro_torch.models import bridge, layers, rope, transformer
+from repro_torch.models.api import build_model as torch_build_model
 from repro_torch.models.transformer import DecoderModel, init_params
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -213,27 +214,23 @@ def test_param_shapes_match_jax_init_params(arch):
         assert t.dtype == (torch.float32 if norm else torch.bfloat16), key
 
 
-# what each family still refuses: its parameters, for the families still
-# to be ported (ROADMAP.md queue 1 items 8 and 10), or the paged executor,
-# for the MoE families that serve on the slot executor only (the JAX
-# package's paged executor refuses them too)
-UNPORTED = {"kimi-k2-1t-a32b": "paged", "deepseek-v2-236b": "paged",
-            "mamba2-780m": "SSM", "hymba-1.5b": "hybrid",
-            "whisper-base": "encoder-decoder"}
+# the families that serve on the slot executor only: the paged executor
+# refuses them, in both packages, with the message that names the reason
+UNPORTED = {"kimi-k2-1t-a32b": "stack kind 'moe'",
+            "deepseek-v2-236b": "stack kind 'moe'",
+            "mamba2-780m": "stack kind 'ssm'",
+            "hymba-1.5b": "stack kind 'hybrid'",
+            "whisper-base": "encoder/decoder"}
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_refuse(arch):
     cfg = get_config(arch, smoke=True)
-    if UNPORTED[arch] == "paged":
-        model = DecoderModel(cfg, device="cpu", generator=torch.Generator())
-        with pytest.raises(NotImplementedError, match="executor='real'"):
-            PagedRealExecutor(model)
-        return
-    with pytest.raises(NotImplementedError, match="queue 1 items 8 and 10"):
-        transformer.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        DecoderModel(cfg, device="cpu", generator=torch.Generator())
+    model = torch_build_model(cfg, device="cpu",
+                              generator=torch.Generator())
+    with pytest.raises(NotImplementedError,
+                       match=f"{UNPORTED[arch]}.*executor='real'"):
+        PagedRealExecutor(model)
 
 
 def _flatten(tree, prefix=()):

@@ -17,7 +17,10 @@ bridged over (norm weights moved off zero by numpy draws):
   * both archs served by the slot executor against JAX's on cronus,
     disagg_lh and dp, an extract -> inject round trip that carries the
     dense layers' cache, the launcher's JSON, and the paged executor's
-    refusal (in ``test_torch_families.py``).
+    refusal (in ``test_torch_families.py``);
+  * capacity mode under the slot executors: equal to JAX where one
+    slot's chunks fill their bucket, equal to the port's own exact-width
+    run where JAX's padding takes capacity.
 
 Routing near-ties: the two frameworks sum the router's products in
 different orders, so a token whose k-th and (k+1)-th probabilities lie
@@ -395,11 +398,12 @@ def _serve(kind, s, approach):
     reqs = [cls(req_id=f"r{i}", prompt=s.prompts[i].copy(),
                 output_len=LENS[i][1], arrival=0.0)
             for i in range(len(LENS))]
-    rows = {}
-    for e in _engines(system):
-        rows.update(_recording(e.executor, e.slots))
+    recorded = [_recording(e.executor, e.slots) for e in _engines(system)]
     res = system.run(reqs)
     assert res["completed"] == len(LENS)
+    rows = {}
+    for r in recorded:           # filled during the run
+        rows.update(r)
     return rows, {r.req_id: r.partial_len for r in reqs}
 
 
@@ -407,7 +411,7 @@ def _compare(got, want):
     """Logits within LOGIT_TOL at every compared step; a token differs
     only at a near-tie, and the request is compared no further. Returns
     the number of near-tie divergences."""
-    assert set(got) == set(want)
+    assert want and set(got) == set(want)
     by_req = {}
     for key in sorted(want):
         by_req.setdefault(key[0], []).append(key)
@@ -472,6 +476,55 @@ def test_extract_inject_carries_the_dense_layers(arch):
         tok = cpi.decode({2: tok}, {2: n + step})[2]
         np.testing.assert_allclose(cpi.last_logits, whole.last_logits,
                                    rtol=1e-4, atol=1e-4)
+
+
+def test_capacity_mode_departure_from_the_jax_slot_executor(monkeypatch):
+    """Capacity mode (``exact_moe=False``) under the slot executors. JAX
+    forwards ``max_slots`` rows at the padded width, so its drop rule
+    ranks padding and idle slots' rows with the real tokens; the port
+    forwards only the real tokens (``RealExecutor``'s docstring).
+
+    With one slot and chunks that fill their 16-token bucket exactly, the
+    two rank the same tokens: the logits agree, with pairs dropped. Where
+    JAX's padding takes capacity (slot 1 of 2, a 12-token chunk: 32 rows
+    compete in JAX, 12 in the port), the port equals its own run of the
+    12 tokens at their exact width and JAX's logits differ."""
+    s = _setup("kimi-k2-1t-a32b")
+    jcap = types.SimpleNamespace(jmodel=build_model(s.jcfg, exact_moe=False),
+                                 jparams=s.jparams, fwd=None)
+    model = DecoderModel(s.cfg, s.model.params, device="cpu",
+                         exact_moe=False)
+    drops = []
+    dispatch = tmoe.dispatch
+
+    def counted(idx, n_experts, cap):
+        out = dispatch(idx, n_experts, cap)
+        drops.append(int(out[2]))
+        return out
+    monkeypatch.setattr(tmoe, "dispatch", counted)
+    prompt = np.random.default_rng(2).integers(0, s.cfg.vocab_size,
+                                               32).astype(np.int32)
+    jax_ex = _JaxSlot(jcap, max_slots=1, s_kv=S_KV)
+    ex = RealExecutor(model, max_slots=1, s_kv=S_KV)
+    for e in (jax_ex, ex):
+        e.prefill_chunk(0, prompt[:16], 0, False)
+        e.prefill_chunk(0, prompt[16:], 16, True)
+    assert min(drops) > 0                  # both chunks dropped pairs
+    np.testing.assert_allclose(ex.last_logits, jax_ex.last_logits,
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+    jax_ex = _JaxSlot(jcap, max_slots=2, s_kv=S_KV)
+    ex = RealExecutor(model, max_slots=2, s_kv=S_KV)
+    for e in (jax_ex, ex):
+        e.prefill_chunk(1, prompt[:12], 0, True)
+    with torch.no_grad():
+        exact, _, _ = model.forward(model.params,
+                                    torch.from_numpy(prompt[None, :12]),
+                                    model.init_cache(1, S_KV),
+                                    torch.zeros((1,), dtype=torch.int32))
+    assert drops[-1] > 0
+    np.testing.assert_array_equal(ex.last_logits, exact[:, -1].numpy())
+    assert np.abs(ex.last_logits - jax_ex.last_logits).max() > 0.1
 
 
 # ---------------------------------------------------------------------------

@@ -276,14 +276,15 @@ def test_forward_matches_jax_prefill_and_decode(setup):
 
 
 def test_forward_refuses_what_is_not_ported(setup):
-    """Training waits for the training slice; SSM (like hybrid and
-    encoder-decoder) is refused when its parameters are laid out."""
+    """Training waits for the training slice; an SSM model builds, with
+    its recurrent state in the slot cache and no attention cache."""
     with pytest.raises(NotImplementedError, match="training"):
         setup.model.forward(setup.model.params, torch.zeros((1, 1)),
                             None, torch.zeros((1,)), train=True)
     ssm = get_config("mamba2-780m", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        DecoderModel(ssm, device="cpu", generator=torch.Generator())
+    model = DecoderModel(ssm, device="cpu", generator=torch.Generator())
+    assert model._stack_kind() == "ssm"
+    assert set(model.init_cache(2, 16)["stack"]) == {"h", "conv"}
 
 
 # ---------------------------------------------------------------------------
