@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -82,7 +82,21 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    fail it); (9e) ``ssd_chunked`` against ``ssd_ref`` at mamba2's and
    hymba's head widths in fp32; (9f) the launcher with ``--arch
    hymba-1.5b --smoke --executor real`` in a subprocess. Phase 9
-   launches neither kernel of the repo.
+   launches neither kernel of the repo;
+10. training through ``Trainer`` (bf16 compute on fp32 master weights
+   and fp32 AdamW state, drawn on the card from seed 0; the batches of
+   ``TokenDataset`` made on the host before the timed steps): (10a)
+   llama3-8b at full width cut to 4 layers, 8 steps of 4 x 1024 tokens;
+   (10b) the gradient at full width against the central difference of
+   the loss along a random unit direction, in fp32 at 2 layers; (10c)
+   mamba2-780m and whisper-base at full width and depth, 6 steps each,
+   each training run followed by one step under ``torch.profiler``; (10d) a
+   checkpoint saved after step 2 and loaded into a fresh trainer, whose
+   next step must equal the uninterrupted run's bit for bit; (10e)
+   ``python -m repro_torch.launch.train --steps 20`` in a subprocess.
+   Each run prints its losses, grad norms, step ms, tokens/s and peak
+   memory, and fails unless its losses and grad norms are finite, its
+   last loss is below its first and neither kernel of the repo launched.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -1655,6 +1669,235 @@ def phase_ssm(torch, n_requests=N_REQUESTS):
     _launcher(LAUNCH_ARGS_9F, "[phase 9f]")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+# (10a) llama3-8b at full width cut to 4 of 32 layers: at full depth its
+# fp32 master weights, gradients and AdamW moments would be 8.0 B params
+# x 16 B = 128 GB; at 4 layers, 1.92 B params and ~31 GB. bf16 compute on
+# fp32 masters, batch 4 x 1024 tokens. A peak rate of 3e-4 after 2 warmup
+# steps diverges at this width (losses 16.7 and 18.2 at steps 3 and 5,
+# grad norms ~70, in this script's first run on the card); 1e-4 does not
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 8
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+# (10b) the directional derivative of the loss at full width, 2 layers,
+# fp32 with TF32 off, one batch of 1 x 64 tokens, along a unit direction
+# d over every leaf drawn from seed 0: (L(p + eps d) - L(p - eps d)) /
+# 2 eps against <grad L, d>. A unit d over 1.5 B params moves each by
+# ~2.6e-5, so <grad L, d> ~ |grad L| / 3.9e4; eps = 10 moves the weights
+# by ~1.5% of their norm (the central difference's error is second order
+# in that), and lifts the difference of the two losses ~1e3 over their
+# fp32 rounding (~1e-6 at a loss of ~12). Dropping the leaf whose term of
+# <grad L, d> is largest changes it by >= 1/leaves, far past the tolerance
+GRAD_LAYERS, GRAD_SEQ, GRAD_EPS, GRAD_RTOL = 2, 64, 10.0, 1e-2
+# (10c) the SSM and encoder-decoder families at full width and depth, at
+# a peak rate of 3e-4 for their narrower widths (d 1536, 512; at 1e-3
+# mamba2-780m's loss jumped at step 4 in the first run on the card)
+TRAIN_FAMILIES = ("mamba2-780m", "whisper-base")
+FAMILY_STEPS = 6
+FAMILY_OPT = dict(TRAIN_OPT, lr=3e-4)
+# (10d) checkpoint round trip: whisper-base saved after step 2 of 2 x 256
+CKPT_ARCH, CKPT_STEP, CKPT_BATCH, CKPT_SEQ = "whisper-base", 2, 2, 256
+LAUNCH_ARGS_10E = ["--steps", "20"]
+
+
+def _train_run(torch, tag, cfg, full, n_steps, opt_kw):
+    """Train ``cfg`` through ``Trainer`` on the card: the model drawn from
+    seed 0 in bf16, ``Trainer.init(0)``'s fp32 masters and AdamW state,
+    the batches made on the host before the timed steps; each step timed
+    on the host clock between synchronises, with the kernel counts set to
+    0 before the steps and read after; then one more step under
+    ``torch.profiler`` (not timed). Fails unless every loss and
+    grad norm is finite, the last loss is below the first and neither
+    kernel launched."""
+    from repro_torch.models.api import build_model
+    from repro_torch.training import AdamWConfig, Trainer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    trainer = Trainer(model, AdamWConfig(**opt_kw),
+                      batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    params, opt = trainer.init(0)
+    torch.cuda.synchronize()
+    log(f"{tag} {_describe(cfg, full)}; model and fp32 masters + AdamW "
+        f"state drawn on the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    t0 = time.perf_counter()
+    batches = [trainer.batch(s) for s in range(n_steps + 1)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    log(f"{tag} data: {len(batches)} batches of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens made in {data_s:.3f} s on the host "
+        f"({data_s / len(batches):.3f} s a batch), before the timed steps")
+    losses, gnorms, step_s = [], [], []
+
+    def steps():
+        nonlocal params, opt
+        for b in batches[:n_steps]:
+            t = time.perf_counter()
+            params, opt, stats = trainer.step(params, opt, b)
+            losses.append(float(stats["loss"]))
+            gnorms.append(float(stats["grad_norm"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    _, wall, launches = _counted(torch, steps)
+    med = statistics.median(step_s)
+    log(f"{tag} losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in gnorms]}")
+    log(f"{tag} {n_steps} steps in {wall:.3f} s: step ms "
+        f"{[round(1e3 * s, 3) for s in step_s]}, median {1e3 * med:.3f} ms "
+        f"= {TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    _, prof, pwall = Recorder._profiled(
+        torch, lambda: trainer.step(params, opt, batches[-1]))
+    _report_profile(Profile(f"training step {n_steps + 1}", "train", prof,
+                            pwall, {}), med, "training step", tag=tag)
+    if not all(map(math.isfinite, losses + gnorms)):
+        _fail(f"{tag} a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        _fail(f"{tag} the loss did not fall: {losses}")
+    if any(launches.values()):
+        _fail(f"{tag} a kernel of the repo launched: {launches}")
+
+
+def _grad_check(torch):
+    """(10b) The directional derivative along a random unit direction
+    against the gradient's projection on it, at full width in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training import Trainer
+    from repro_torch.training.tree import flatten, unflatten
+    tag = "[phase 10b]"
+    full = get_config("llama3-8b")
+    cfg = dataclasses.replace(full, n_layers=GRAD_LAYERS, dtype="float32")
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    batch = Trainer(model, batch_size=1, seq_len=GRAD_SEQ).batch(0)
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in flatten(model.params).items()}
+    loss = model.loss(unflatten(leaves), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = {k: torch.randn(v.shape, generator=gen, device="cuda")
+         for k, v in leaves.items()}
+    norm = math.sqrt(sum(float((x.double() ** 2).sum()) for x in d.values()))
+    terms = {k: float((g.double() * d[k].double()).sum()) / norm
+             for k, g in zip(leaves, grads)}
+    dot = sum(terms.values())
+    with torch.no_grad():
+        lp, lm = (float(model.loss(unflatten(
+            {k: v + (sign * GRAD_EPS / norm) * d[k]
+             for k, v in leaves.items()}), batch)) for sign in (1, -1))
+    fd = (lp - lm) / (2 * GRAD_EPS)
+    rel = abs(fd - dot) / abs(dot)
+    big = max(terms, key=lambda k: abs(terms[k]))
+    missing = abs(fd - (dot - terms[big])) / abs(dot - terms[big])
+    log(f"{tag} {_describe(cfg, full)}; batch 1 x {GRAD_SEQ}, TF32 off: "
+        f"loss {loss.item():.6f}; eps {GRAD_EPS:g}: L(p+eps d) {lp:.7f}, "
+        f"L(p-eps d) {lm:.7f}; central difference {fd:.6e}, <grad L, d> "
+        f"{dot:.6e}, ratio {fd / dot:.6f}, rel err {rel:.3e} (tol "
+        f"{GRAD_RTOL:g}); without the gradient of {big} (the largest of "
+        f"{len(terms)} terms) the rel err would read {missing:.3e}")
+    if not rel <= GRAD_RTOL:
+        _fail(f"{tag} the directional derivative misses <grad L, d>")
+    if not missing > GRAD_RTOL:
+        _fail(f"{tag} the check cannot tell a missing leaf")
+
+
+def _ckpt_round_trip(torch):
+    """(10d) Save after step ``CKPT_STEP``, load into a fresh trainer whose
+    own weights are drawn from another seed, take the next step: its loss,
+    parameters and AdamW state must equal those of the run that never
+    stopped, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training import (AdamWConfig, Trainer,
+                                      load_checkpoint, save_checkpoint)
+    from repro_torch.training.tree import flatten
+    tag = "[phase 10d]"
+    cfg = get_config(CKPT_ARCH)
+
+    def trainer():
+        model = build_model(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        return Trainer(model, AdamWConfig(**TRAIN_OPT),
+                       batch_size=CKPT_BATCH, seq_len=CKPT_SEQ)
+    path = ROOT / "build" / "phase10d" / "ckpt.npz"
+    a = trainer()
+    p, o, _ = a.run(*a.init(0), CKPT_STEP, log=None)
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), p, o, CKPT_STEP)
+    save_s = time.perf_counter() - t0
+    p, o, want = a.run(p, o, 1, log=None, start=CKPT_STEP)
+    b = trainer()
+    t0 = time.perf_counter()
+    tp, to, step = load_checkpoint(str(path), *b.init(1))
+    load_s = time.perf_counter() - t0
+    tp, to, got = b.run(tp, to, 1, log=None, start=step)
+    size = path.stat().st_size
+    shutil.rmtree(path.parent)
+    diff = max((x.float() - y.float()).abs().max().item()
+               for t1, t2 in ((tp, p), (to, o))
+               for x, y in zip(flatten(t1).values(), flatten(t2).values()))
+    log(f"{tag} {cfg.name}: saved after step {CKPT_STEP} ({size / 2**20:.1f}"
+        f" MiB in {save_s:.2f} s, loaded in {load_s:.2f} s); step "
+        f"{CKPT_STEP + 1} resumed loss {got[0]:.7f} vs uninterrupted "
+        f"{want[0]:.7f} (diff {abs(got[0] - want[0]):.3e}); max abs diff of "
+        f"the parameters and AdamW state after it {diff:.3e} (required: 0)")
+    if step != CKPT_STEP or got != want or diff != 0:
+        _fail(f"{tag} the resumed step differs from the uninterrupted one")
+
+
+def _train_launcher(tag):
+    """(10e) ``python -m repro_torch.launch.train`` in a subprocess on the
+    card (its default device): exit 0 and a final loss below its
+    start."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *LAUNCH_ARGS_10E]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        _fail(f"{tag} launch.train exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+    m = re.search(r"final loss (\S+) \(start (\S+)\)", run.stdout)
+    log(f"{tag} python -m repro_torch.launch.train "
+        f"{' '.join(LAUNCH_ARGS_10E)}: exit 0 in {secs:.1f} s; "
+        f"{m.group(0) if m else 'no final loss printed'}")
+    if not m or not float(m.group(1)) < float(m.group(2)):
+        _fail(f"{tag} launch.train's loss did not fall: {run.stdout[-500:]}")
+
+
+def phase_train(torch):
+    """Training on the card: (10a) llama3-8b at full width cut to
+    ``TRAIN_LAYERS`` layers; (10b) the gradient check; (10c) mamba2-780m
+    and whisper-base at full width and depth (each run of 10a and 10c
+    profiled for one extra step); (10d) the checkpoint round trip; (10e) the launcher. No kernel
+    of the repo runs in training."""
+    from repro_torch.configs import get_config
+    full = get_config("llama3-8b")
+    _train_run(torch, "[phase 10a]",
+               dataclasses.replace(full, n_layers=TRAIN_LAYERS), full,
+               TRAIN_STEPS, TRAIN_OPT)
+    _free(torch)
+    _grad_check(torch)
+    _free(torch)
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        _train_run(torch, f"[phase 10c] {arch}", cfg, cfg, FAMILY_STEPS,
+                   FAMILY_OPT)
+        _free(torch)
+    _ckpt_round_trip(torch)
+    _free(torch)
+    _train_launcher("[phase 10e]")
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -1676,7 +1919,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1717,6 +1960,8 @@ def main() -> int:
         timed(8, phase_moe, torch)
     if 9 in phases:
         timed(9, phase_ssm, torch)
+    if 10 in phases:
+        timed(10, phase_train, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

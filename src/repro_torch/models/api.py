@@ -20,12 +20,14 @@ def param_shapes(cfg) -> Dict:
 
 def build_model(cfg, params: Optional[Dict] = None, *, device,
                 generator: Optional[torch.Generator] = None,
-                exact_moe: bool = False):
+                exact_moe: bool = False, remat: bool = True):
     """The model of ``cfg`` on ``device``: an :class:`EncDecModel` for an
     encoder-decoder config, else a :class:`DecoderModel` (``exact_moe``:
     its MoE layers drop nothing); ``params`` or a ``generator`` to draw
-    them, as their constructors take."""
+    them, and ``remat`` (training recomputes each layer in the backward
+    pass), as their constructors take."""
     if cfg.enc_dec:
-        return EncDecModel(cfg, params, device=device, generator=generator)
+        return EncDecModel(cfg, params, device=device, generator=generator,
+                           remat=remat)
     return DecoderModel(cfg, params, device=device, generator=generator,
-                        exact_moe=exact_moe)
+                        exact_moe=exact_moe, remat=remat)

@@ -1,10 +1,11 @@
 """Attention over the slot ("unified") cache: dense GQA and MLA.
 
 The counterpart of the JAX package's ``models/attention.py`` for the slot
-executor's serving path: parameter shapes, the ring write into the cache,
-the position mask, softmax attention (plain and blocked), the GQA
-attention block, DeepSeek-V2's MLA block over a latent cache, and the
-encoder-decoder's bidirectional encoder attention and cross attention.
+executor's serving path and training's cache-free path: parameter
+shapes, the ring write into the cache, the position mask, softmax
+attention (plain and blocked), the GQA attention block, DeepSeek-V2's
+MLA block over a latent cache, and the encoder-decoder's bidirectional
+encoder attention and cross attention.
 The paged executor's attention runs in :mod:`repro_torch.kernels`
 instead.
 
@@ -215,17 +216,19 @@ def _cache_rows(layer_cache: Dict, keys, b: int,
 # ---------------------------------------------------------------------------
 
 def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                    kv_pos: torch.Tensor, idx: torch.Tensor,
-                    layer_cache: Dict, window,
+                    kv_pos: torch.Tensor, idx: Optional[torch.Tensor],
+                    layer_cache: Optional[Dict], window,
                     rows: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, Dict]:
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention over the unified cache, written in place.
 
     x [b,Sq,d]; positions [b,Sq] (absolute, -1 = padding); kv_pos
     [b,S_kv] (post-write positions); idx [b,Sq] write slots; layer_cache
     {'k','v'} of ``[B, S_kv, Kv, D]`` whose rows ``rows`` (default: the
     first ``b``) the batch maps to; window: int (0 = full attention).
-    Returns (out [b,Sq,d], layer_cache).
+    ``layer_cache=None`` is the cache-free (training) path: the chunk
+    attends over its own K/V (``kv_pos`` = its positions) and nothing is
+    written. Returns (out [b,Sq,d], layer_cache).
     """
     b, sq, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -238,9 +241,12 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     q = position_encode(q, positions, cfg)
     k = position_encode(k, positions, cfg)
 
-    scatter_tokens(layer_cache["k"], k, idx, rows)
-    scatter_tokens(layer_cache["v"], v, idx, rows)
-    ck, cv = _cache_rows(layer_cache, ("k", "v"), b, rows)
+    if layer_cache is None:
+        ck, cv = k, v
+    else:
+        scatter_tokens(layer_cache["k"], k, idx, rows)
+        scatter_tokens(layer_cache["v"], v, idx, rows)
+        ck, cv = _cache_rows(layer_cache, ("k", "v"), b, rows)
     if sq * ck.shape[1] >= BLOCKED_ATTN_THRESHOLD and sq > 1:
         out = blocked_gqa_attend(q, ck, cv, positions, kv_pos, window,
                                  hd ** -0.5)
@@ -260,12 +266,14 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
                         positions: torch.Tensor, kv_pos: torch.Tensor,
-                        idx: torch.Tensor, layer_cache: Dict, window,
+                        idx: Optional[torch.Tensor],
+                        layer_cache: Optional[Dict], window,
                         rows: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, Dict]:
+                        ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head latent attention over the unified cache, written in
     place; arguments as :func:`attention_block`, with ``layer_cache``
-    {'ckv': ``[B, S_kv, r_kv]``, 'kpe': ``[B, S_kv, hd_r]``}.
+    {'ckv': ``[B, S_kv, r_kv]``, 'kpe': ``[B, S_kv, hd_r]``} (``None``:
+    the chunk's own latent, nothing written).
 
     ``W_uk`` is absorbed into the query, so scores are taken against the
     latent directly, and ``W_uv`` is applied after the weighted sum; both
@@ -290,10 +298,13 @@ def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
     q_nope, q_pe = q[..., :hd_n], q[..., hd_n:]
     q_pe = position_encode(q_pe, positions, cfg)
 
-    scatter_tokens(layer_cache["ckv"], c_kv, idx, rows)
-    scatter_tokens(layer_cache["kpe"], k_pe, idx, rows)
-    cckv, ckpe = (a.float() for a in _cache_rows(layer_cache,
-                                                  ("ckv", "kpe"), b, rows))
+    if layer_cache is None:
+        cckv, ckpe = c_kv.float(), k_pe.float()
+    else:
+        scatter_tokens(layer_cache["ckv"], c_kv, idx, rows)
+        scatter_tokens(layer_cache["kpe"], k_pe, idx, rows)
+        cckv, ckpe = (a.float() for a in _cache_rows(
+            layer_cache, ("ckv", "kpe"), b, rows))
 
     # absorb W_uk into q: scores over the latent directly
     q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(),

@@ -1,5 +1,5 @@
 """Weight bridge: the JAX ``init_params`` pytree (``DecoderModel`` or
-``EncDecModel``) as torch parameters.
+``EncDecModel``) as torch parameters, and torch trees back as numpy.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from the same
 seed, so parity tests draw the weights once in JAX, turn the pytree into
@@ -50,3 +50,18 @@ def params_from_numpy(tree: Dict, cfg, *, device,
         return out
 
     return convert(tree, param_shapes(cfg), "")
+
+
+def params_to_numpy(tree: Dict) -> Dict:
+    """Nested dict of torch tensors -> nested dict of numpy arrays on the
+    host, the inverse of :func:`params_from_numpy`: floating leaves as
+    fp32 (the JAX package's master weights), others (an optimizer's step
+    count) in their own dtype."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_to_numpy(v)
+        else:
+            v = v.detach()
+            out[k] = (v.float() if v.is_floating_point() else v).cpu().numpy()
+    return out

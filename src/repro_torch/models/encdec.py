@@ -7,7 +7,9 @@ encoder output -> MLP. The cross-attention K/V are computed once from the
 encoder output and held in the cache (``cross_k``/``cross_v``), so a
 partially disaggregated prefill ships cross-KV beside the self-KV prefix.
 As in :mod:`repro_torch.models.transformer`, the layers run in a Python
-loop and the cache is written in place at the batch's rows.
+loop and the cache is written in place at the batch's rows; training
+runs both stacks without a cache (``train=True``, ``loss``), each layer
+recomputed in the backward pass when ``remat``.
 """
 from __future__ import annotations
 
@@ -15,13 +17,15 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
 from repro_torch.models.layers import mlp_shapes, rmsnorm, swiglu
 from repro_torch.models.transformer import (_ParamTree, cache_positions,
                                             check_device, draw_params,
-                                            layer_slice, model_dtype)
+                                            layer_slice, model_dtype,
+                                            token_nll)
 
 
 def param_shapes(cfg) -> Dict:
@@ -41,15 +45,17 @@ def param_shapes(cfg) -> Dict:
 
 
 class EncDecModel(nn.Module):
-    """Encoder-decoder: ``encode``, ``compute_cross_kv`` and the
-    slot-cache serving ``forward``. ``params``, ``device`` and
-    ``generator`` as for :class:`~repro_torch.models.transformer
-    .DecoderModel`."""
+    """Encoder-decoder: ``encode``, ``compute_cross_kv``, the
+    slot-cache serving ``forward``, the training forward and ``loss``.
+    ``params``, ``device``, ``generator`` and ``remat`` as for
+    :class:`~repro_torch.models.transformer.DecoderModel`."""
 
     def __init__(self, cfg, params: Optional[Dict] = None, *,
-                 device, generator: Optional[torch.Generator] = None):
+                 device, generator: Optional[torch.Generator] = None,
+                 remat: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.dtype = model_dtype(cfg)
         if params is None:
             if generator is None:
@@ -84,21 +90,35 @@ class EncDecModel(nn.Module):
                 "stack": {"k": zeros(s_kv), "v": zeros(s_kv)},
                 "cross_k": zeros(s_enc), "cross_v": zeros(s_enc)}
 
-    def encode(self, params: Dict, enc_emb: torch.Tensor) -> torch.Tensor:
+    def _run(self, layer, train: bool, *args):
+        """``layer(*args)``, recomputed in the backward pass when
+        training with ``remat``."""
+        if train and self.remat:
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+    def _enc_layer(self, lp: Dict, x, positions):
+        cfg = self.cfg
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn.encoder_attention(lp["attn"], cfg, h, positions)
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                          lp["mlp"]["w_down"])
+
+    def encode(self, params: Dict, enc_emb: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
         """enc_emb ``[B, S_enc, d]`` (the frontend stub's output) ->
-        the encoder output ``[B, S_enc, d]`` in the model's dtype."""
+        the encoder output ``[B, S_enc, d]`` in the model's dtype
+        (``train``: each layer recomputed in the backward pass when
+        ``remat``)."""
         cfg = self.cfg
         x = enc_emb.to(self.dtype)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         for i in range(cfg.n_enc_layers):
-            lp = layer_slice(params["enc_layers"], i)
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            x = x + attn.encoder_attention(lp["attn"], cfg, h, positions)
-            h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                           lp["mlp"]["w_down"])
+            x = self._run(self._enc_layer, train,
+                          layer_slice(params["enc_layers"], i), x, positions)
         return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
     def compute_cross_kv(self, params: Dict, enc_out: torch.Tensor):
@@ -114,8 +134,24 @@ class EncDecModel(nn.Module):
                           cross["wv"].to(enc_out.dtype)).reshape(shape)
         return ck, cv
 
-    def forward(self, params: Dict, inputs: torch.Tensor, cache: Dict,
-                cache_len: torch.Tensor, *,
+    def _dec_layer(self, lp: Dict, x, positions, kv_pos, idx, lc, width,
+                   rows, ck, cv):
+        """One decoder layer: self-attention (over the cache ``lc``, or
+        the sequence alone when it is ``None``), cross-attention over
+        ``ck``/``cv``, MLP."""
+        cfg = self.cfg
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a_out, _ = attn.attention_block(lp["attn"], cfg, h, positions,
+                                        kv_pos, idx, lc, width, rows)
+        x = x + a_out
+        hc = rmsnorm(x, lp["ln_cross"], cfg.norm_eps)
+        x = x + attn.cross_attention(lp["cross"], cfg, hc, ck, cv)
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                          lp["mlp"]["w_down"])
+
+    def forward(self, params: Dict, inputs: torch.Tensor,
+                cache: Optional[Dict], cache_len: Optional[torch.Tensor], *,
                 positions: Optional[torch.Tensor] = None,
                 kv_positions: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
@@ -126,14 +162,29 @@ class EncDecModel(nn.Module):
         nothing here). With ``enc_out`` (a first prefill chunk) the
         cross-KV is computed from it and written to the batch's rows of
         the cache, whose encoder length it must have; otherwise it is read
-        from those rows. Returns ``(logits [b, S, V], cache, 0.0)``."""
-        if train:
-            raise NotImplementedError(
-                "the training forward (train=True) comes with the training "
-                "slice (queue 1 item 11)")
+        from those rows. Returns ``(logits [b, S, V], cache, 0.0)``.
+
+        ``train=True`` takes no cache and needs ``enc_out``: the cross-KV
+        comes from it, positions default to ``arange(S)``, self-attention
+        sees the sequence alone, and the returned cache is ``None``."""
         cfg = self.cfg
         x = params["embed"].to(self.dtype)[inputs.long()]
         b = x.shape[0]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if train:
+            if enc_out is None:
+                raise ValueError("the training forward needs enc_out")
+            if positions is None:
+                positions = torch.arange(
+                    x.shape[1], dtype=torch.int32,
+                    device=x.device)[None].expand(b, -1)
+            ck, cv = self.compute_cross_kv(params, enc_out)
+            for i in range(cfg.n_layers):
+                x = self._run(self._dec_layer, True,
+                              layer_slice(params["layers"], i), x, positions,
+                              positions, None, None, cfg.layer_window(i),
+                              None, ck[i], cv[i])
+            return self._logits(params, x), None, zero
         positions, kv_pos, idx = cache_positions(
             cache, cache_len, x.shape[1], positions, kv_positions, rows)
         sel = torch.arange(b, device=x.device) if rows is None else rows
@@ -147,30 +198,26 @@ class EncDecModel(nn.Module):
             for k, a in zip(("cross_k", "cross_v"), cross):
                 cache[k].index_copy_(1, sel, a.to(cache[k].dtype))
         for i in range(cfg.n_layers):
-            lp = layer_slice(params["layers"], i)
             lc = {k: a[i] for k, a in cache["stack"].items()}
             if cross is None:
                 ck, cv = (cache[k][i].index_select(0, sel)
                           for k in ("cross_k", "cross_v"))
             else:
                 ck, cv = cross[0][i], cross[1][i]
-            h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            a_out, _ = attn.attention_block(lp["attn"], cfg, h, positions,
-                                            kv_pos, idx, lc,
-                                            cfg.layer_window(i), rows)
-            x = x + a_out
-            hc = rmsnorm(x, lp["ln_cross"], cfg.norm_eps)
-            x = x + attn.cross_attention(lp["cross"], cfg, hc, ck, cv)
-            h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                           lp["mlp"]["w_down"])
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = x @ params["head"].to(x.dtype)
-        return logits, cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+            x = self._dec_layer(layer_slice(params["layers"], i), x,
+                                positions, kv_pos, idx, lc,
+                                cfg.layer_window(i), rows, ck, cv)
+        return self._logits(params, x), cache, zero
 
-    def loss(self, params: Dict, batch: Dict):
-        """The training loss: not ported yet."""
-        raise NotImplementedError(
-            "EncDecModel.loss comes with the training slice (queue 1 item "
-            "11)")
+    def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return x @ params["head"].to(x.dtype)
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Next-token NLL (fp32 log-softmax) of the training forward.
+        batch: ``{'enc_emb': [B, S_enc, d], 'tokens': [B, S+1]}``."""
+        enc_out = self.encode(params, batch["enc_emb"], train=True)
+        tokens = batch["tokens"]
+        logits, _, _ = self.forward(params, tokens[:, :-1], None, None,
+                                    enc_out=enc_out, train=True)
+        return token_nll(logits, tokens[:, 1:])

@@ -7,19 +7,22 @@ GQA or MLA attention, attention-free SSM ("ssm": mamba2 blocks only) and
 hybrid ("hybrid": attention and SSM branches in parallel in every layer):
 the parameters and facts the paged executor reads (``cfg``, ``n_stack``,
 ``n_dense``, ``is_mla``, ``dtype``, ``_stack_kind()``), and the slot
-executor's ``init_cache`` and ``forward(..., train=False)``. The
-encoder-decoder model is :mod:`repro_torch.models.encdec`; the training
-forward is still to be ported and raises ``NotImplementedError``.
+executor's ``init_cache`` and ``forward(..., train=False)``, and the
+training forward (``train=True``: no cache, each layer recomputed in the
+backward pass when ``remat``) and ``loss``. The encoder-decoder model is
+:mod:`repro_torch.models.encdec`.
 
 Parameters keep the reference layout: ``x @ W`` with ``[in, out]`` weights
 and every per-layer leaf stacked along a leading ``L`` dimension. Weight
 matrices and the embedding are stored once in the model's dtype (the JAX
 package stores fp32 and casts at each use, which gives the same values);
 norm weights and the SSM's per-head constants stay fp32 (``FP32_KEYS``).
-The JAX package runs the stacked layers with ``lax.scan`` and returns a
-new cache; here a Python loop walks the layers and the cache tensors are
-written in place (a full-width slot cache is gigabytes), the SSM state
-included: only the rows of the batch are read and written.
+Training holds fp32 master weights, as the JAX package does, and every
+use site casts them to the compute dtype. The JAX package runs the
+stacked layers with ``lax.scan`` and returns a new cache; here a Python
+loop walks the layers and the cache tensors are written in place (a
+full-width slot cache is gigabytes), the SSM state included: only the
+rows of the batch are read and written.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
@@ -222,15 +226,18 @@ class DecoderModel(nn.Module):
     :func:`init_params`) and must lie on ``device``; without it the
     weights are drawn on ``device`` from ``generator``. ``exact_moe``
     runs the MoE layers without capacity drops, as serving does (the
-    JAX constructor's keyword and default).
+    JAX constructor's keyword and default). ``remat`` recomputes each
+    layer of the training forward in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
     """
 
     def __init__(self, cfg, params: Optional[Dict] = None, *,
                  device, generator: Optional[torch.Generator] = None,
-                 exact_moe: bool = False):
+                 exact_moe: bool = False, remat: bool = True):
         super().__init__()
         self.cfg = cfg
         self.exact_moe = exact_moe
+        self.remat = remat
         self.n_dense = cfg.moe_dense_layers if cfg.is_moe else 0
         self.n_stack = cfg.n_layers - self.n_dense
         self.is_mla = cfg.mla_kv_lora_rank > 0
@@ -268,12 +275,13 @@ class DecoderModel(nn.Module):
                                device=self.tree.embed.device)
                 for k, t in tails.items()}
 
-    def _ssm_cache(self, n: int, batch: int) -> Dict:
+    def _ssm_cache(self, n: int, batch: int, device=None) -> Dict:
         """``n`` stacked layers' recurrent state: ``h [n, batch, H, P, N]``
         fp32 and the convolution's carry ``conv [n, batch, W-1,
-        conv_dim]`` in the model's dtype."""
+        conv_dim]`` in the model's dtype, zeroed on ``device`` (default:
+        the weights')."""
         _, h, p, ns, conv_dim = ssm_dims(self.cfg)
-        dev = self.tree.embed.device
+        dev = device or self.tree.embed.device
         return {"h": torch.zeros((n, batch, h, p, ns), dtype=torch.float32,
                                  device=dev),
                 "conv": torch.zeros((n, batch, self.cfg.ssm_conv_width - 1,
@@ -308,11 +316,16 @@ class DecoderModel(nn.Module):
             return inputs.to(self.dtype)
         return params["embed"].to(self.dtype)[inputs.long()]
 
-    def _ssm(self, p: Dict, h, lc: Dict, rows, decode: bool,
+    def _ssm(self, p: Dict, h, lc: Optional[Dict], rows, decode: bool,
              token_mask):
         """The SSM block on the batch's rows of the layer's state, which it
-        writes back in place."""
+        writes back in place; without ``lc`` (training) it starts from
+        zero state and keeps none."""
         b = h.shape[0]
+        if lc is None:
+            zero = {k: v[0] for k, v in self._ssm_cache(
+                1, b, h.device).items()}
+            return ssm_block(p, self.cfg, h, zero)[0]
         sel = torch.arange(b, device=h.device) if rows is None else rows
         state = {k: lc[k].index_select(0, sel) for k in ("h", "conv")}
         out, new = ssm_block(p, self.cfg, h, state, decode=decode,
@@ -327,9 +340,10 @@ class DecoderModel(nn.Module):
         or, for the "moe" kind, the MoE block, whose loss adds to
         ``aux``; an "ssm" layer is the SSM block alone, a "hybrid" layer
         averages the RMS-normed attention and SSM branches before its
-        MLP. Padding tokens (position -1) leave the SSM state as it was."""
+        MLP. Padding tokens (position -1) leave the SSM state as it was.
+        ``lc=None`` is the cache-free training layer."""
         cfg = self.cfg
-        token_mask = positions >= 0
+        token_mask = None if lc is None else positions >= 0
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if kind == "ssm":
             return x + self._ssm(lp["ssm"], h, lc, rows, decode,
@@ -352,25 +366,31 @@ class DecoderModel(nn.Module):
                           lp["mlp"]["w_down"]), aux
 
     def _run_stack(self, kind: str, stacked: Dict, first: int, x,
-                   positions, kv_pos, idx, stack_cache: Dict, rows, aux,
-                   decode):
+                   positions, kv_pos, idx, stack_cache: Optional[Dict],
+                   rows, aux, decode):
         """The stacked layers in order (``first``: the model index of the
-        first, for its window), each writing its cache in place."""
-        for i in range(next(iter(stack_cache.values())).shape[0]):
-            lc = {k: a[i] for k, a in stack_cache.items()}
-            x, aux = self._layer(kind, layer_slice(stacked, i), x,
-                                 positions, kv_pos, idx, lc,
-                                 self.cfg.layer_window(first + i), rows,
-                                 aux, decode)
+        first, for its window), each writing its cache in place; with no
+        cache (training) each layer is recomputed in the backward pass
+        when ``remat``."""
+        for i in range(stacked["ln1"].shape[0]):
+            lc = None if stack_cache is None else {
+                k: a[i] for k, a in stack_cache.items()}
+            args = (kind, layer_slice(stacked, i), x, positions, kv_pos, idx,
+                    lc, self.cfg.layer_window(first + i), rows, aux, decode)
+            if lc is None and self.remat:
+                x, aux = checkpoint(self._layer, *args, use_reentrant=False)
+            else:
+                x, aux = self._layer(*args)
         return x, aux
 
-    def forward(self, params: Dict, inputs: torch.Tensor, cache: Dict,
-                cache_len: torch.Tensor, *,
+    def forward(self, params: Dict, inputs: torch.Tensor,
+                cache: Optional[Dict], cache_len: Optional[torch.Tensor], *,
                 positions: Optional[torch.Tensor] = None,
                 kv_positions: Optional[torch.Tensor] = None,
                 decode: bool = False, train: bool = False,
                 rows: Optional[torch.Tensor] = None):
-        """Serving forward over the slot cache, written in place.
+        """Serving forward over the slot cache, written in place, or the
+        training forward.
 
         inputs: tokens ``[b, S]`` or embeddings ``[b, S, d]``; cache_len
         ``[b]``: tokens already cached per row (sets the write slots);
@@ -384,24 +404,55 @@ class DecoderModel(nn.Module):
         written, recurrent state included. Returns ``(logits [b, S, V],
         cache, aux)``; ``aux`` is the MoE layers' summed load-balance
         loss (fp32; 0 without MoE).
+
+        ``train=True`` takes no cache (``cache`` and ``cache_len`` are
+        ignored): positions default to ``arange(S)``, each token attends
+        over the sequence's own keys, SSM layers start from zero state,
+        and the returned cache is ``None``.
         """
-        if train:
-            raise NotImplementedError(
-                "the training forward (train=True) comes with the training "
-                "slice (queue 1 item 11)")
         cfg = self.cfg
         x = self.embed_inputs(params, inputs)
-        positions, kv_pos, idx = cache_positions(
-            cache, cache_len, x.shape[1], positions, kv_positions, rows)
+        if train:
+            if positions is None:
+                positions = torch.arange(
+                    x.shape[1], dtype=torch.int32,
+                    device=x.device)[None].expand(x.shape[0], -1)
+            kv_pos, idx, stack, dense = positions, None, None, None
+        else:
+            positions, kv_pos, idx = cache_positions(
+                cache, cache_len, x.shape[1], positions, kv_positions, rows)
+            stack, dense = cache["stack"], cache.get("dense")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.n_dense:
             x, aux = self._run_stack("dense_mlp", params["dense_layers"], 0,
-                                     x, positions, kv_pos, idx,
-                                     cache["dense"], rows, aux, decode)
+                                     x, positions, kv_pos, idx, dense, rows,
+                                     aux, decode)
         x, aux = self._run_stack(self._stack_kind(), params["layers"],
                                  self.n_dense, x, positions, kv_pos, idx,
-                                 cache["stack"], rows, aux, decode)
+                                 stack, rows, aux, decode)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         logits = x @ head.to(x.dtype)
-        return logits, cache, aux
+        return logits, (None if train else cache), aux
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Next-token NLL (fp32 log-softmax) of the training forward,
+        averaged over the batch's tokens; MoE models add ``0.01 * aux /
+        max(n_stack, 1)``. batch: ``{'tokens': [B, S+1]}`` or
+        ``{'embeddings': [B, S, d], 'labels': [B, S]}``."""
+        if "embeddings" in batch:
+            inputs, labels = batch["embeddings"], batch["labels"]
+        else:
+            inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        logits, _, aux = self.forward(params, inputs, None, None, train=True)
+        loss = token_nll(logits, labels)
+        if self.cfg.is_moe:
+            loss = loss + 0.01 * aux / max(self.n_stack, 1)
+        return loss
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels [B, S]`` under ``logits
+    [B, S, V]``, from an fp32 log-softmax."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()

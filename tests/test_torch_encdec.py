@@ -12,8 +12,8 @@ smoke config (2 + 2 layers, 64 encoder frames):
     whose PPI->CPI payload carries the cross-attention KV gives the
     logits of one executor's unsplit run (``tests/test_torch_moe.py``'s
     near-tie rule), and a payload whose cross-KV is zeroed does not;
-  * the length check of ``enc_emb``, and the training entry points that
-    wait for the training slice.
+  * the length check of ``enc_emb``, and the training entry points
+    (``encode(train=True)``, the training forward and ``loss``).
 """
 import functools
 import types
@@ -238,9 +238,29 @@ def test_enc_emb_length_must_match_the_cache():
 
 
 def test_training_waits_for_the_training_slice():
+    """The training slice has come: ``encode(train=True)``, the training
+    forward (cross-KV from ``enc_out``, no cache) and ``loss`` give JAX's
+    within 1e-4."""
     s = _setup()
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        s.model.forward(s.model.params, torch.zeros((1, 1)), None,
-                        torch.zeros((1,)), train=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        s.model.loss(s.model.params, {})
+    tokens = np.random.default_rng(11).integers(
+        0, s.cfg.vocab_size, (2, 17)).astype(np.int32)
+    enc = np.stack(s.encs)
+    jenc = s.jmodel.encode(s.jparams, jnp.asarray(enc), train=True)
+    jl, jcache, _ = s.jmodel.forward(
+        s.jparams, jnp.asarray(tokens[:, :-1]), None,
+        jnp.zeros((2,), jnp.int32), enc_out=jenc, train=True)
+    jloss = jax.jit(s.jmodel.loss)(s.jparams, {
+        "enc_emb": jnp.asarray(enc), "tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        tenc = s.model.encode(s.model.params, torch.from_numpy(enc),
+                              train=True)
+        tl, cache, _ = s.model.forward(
+            s.model.params, torch.from_numpy(tokens[:, :-1]), None, None,
+            enc_out=tenc, train=True)
+        loss = s.model.loss(s.model.params, {
+            "enc_emb": torch.from_numpy(enc),
+            "tokens": torch.from_numpy(tokens)})
+    assert cache is None and jcache is None
+    _close(tenc, jenc)
+    _close(tl, jl)
+    assert abs(float(loss) - float(jloss)) <= TOL

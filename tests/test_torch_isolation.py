@@ -27,6 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.training.trainer", "repro_torch.training.checkpoint",
+        "repro_torch.launch.train"} <= set(names)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))

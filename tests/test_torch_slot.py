@@ -276,11 +276,21 @@ def test_forward_matches_jax_prefill_and_decode(setup):
 
 
 def test_forward_refuses_what_is_not_ported(setup):
-    """Training waits for the training slice; an SSM model builds, with
-    its recurrent state in the slot cache and no attention cache."""
-    with pytest.raises(NotImplementedError, match="training"):
-        setup.model.forward(setup.model.params, torch.zeros((1, 1)),
-                            None, torch.zeros((1,)), train=True)
+    """Nothing is refused any more: the training forward (no cache,
+    positions ``arange(S)``) gives JAX's logits within 1e-4 and no cache;
+    an SSM model builds, with its recurrent state in the slot cache and
+    no attention cache."""
+    tokens = np.random.default_rng(7).integers(
+        0, setup.cfg.vocab_size, (2, 19)).astype(np.int32)
+    jl, jcache, _ = setup.jmodel.forward(
+        setup.jparams, jnp.asarray(tokens), None, jnp.zeros((2,), jnp.int32),
+        train=True)
+    with torch.no_grad():
+        tl, cache, _ = setup.model.forward(
+            setup.model.params, torch.from_numpy(tokens), None, None,
+            train=True)
+    assert cache is None and jcache is None
+    _close(tl, jl, 1e-4)
     ssm = get_config("mamba2-780m", smoke=True)
     model = DecoderModel(ssm, device="cpu", generator=torch.Generator())
     assert model._stack_kind() == "ssm"
