@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -96,7 +96,20 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    ``python -m repro_torch.launch.train --steps 20`` in a subprocess.
    Each run prints its losses, grad norms, step ms, tokens/s and peak
    memory, and fails unless its losses and grad norms are finite, its
-   last loss is below its first and neither kernel of the repo launched.
+   last loss is below its first and neither kernel of the repo launched;
+11. the dry-run (``repro_torch.launch.dryrun``): (11a) ``python -m
+   repro_torch.launch.sweep`` over the twelve archs x four input shapes x
+   both production meshes (16x16 and 2x16x16, counted in H100s) in a
+   subprocess on the host's CPU (the meta device), one line a cell
+   (argument GiB per card, t_compute and t_memory in ms, bottleneck,
+   useful-FLOPs ratio), all 96 ``ok``; (11b) llama3-8b on a one-card mesh
+   (decode of 8 rows over 32768 positions, a prefill of 8192 tokens),
+   weights drawn on the card from seed 0 in the specs' dtypes: the card's
+   ``memory_allocated`` for the weights, zeroed cache and inputs within
+   1% of the predicted argument bytes, ``FlopCounterMode`` over the run
+   on the card equal to the calibrated count, and the median of 5
+   synchronised forwards at least 0.9 x the larger roofline term (the
+   ratio printed). Phase 11 launches neither kernel of the repo.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -1898,6 +1911,195 @@ def phase_train(torch):
     _train_launcher("[phase 10e]")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dry-run, and its roofline held against the card
+# ---------------------------------------------------------------------------
+
+# (11a) the grid: every arch x input shape x both production meshes
+GRID_CELLS, GRID_TIMEOUT = 96, 600
+# (11b) llama3-8b on a one-card mesh, bf16 weights drawn on the card from
+# seed 0: decode of 8 rows over 32768 positions (16.1 GB of weights, 34.4
+# GB of KV) and one 8192-token prefill; the forward timed over
+# ROOFLINE_CALLS synchronised calls after one warm-up
+ROOFLINE_ARCH = "llama3-8b"
+ROOFLINE_SHAPES = (("decode", 32768, 8, "decode"),
+                   ("prefill", 8192, 1, "prefill"))
+ROOFLINE_CALLS = 5
+# the card's allocation within 1% of the predicted argument bytes; the
+# measured time at least 0.9 of the larger roofline term
+ALLOC_RTOL, ROOFLINE_FLOOR = 0.01, 0.9
+
+
+def _dryrun_grid(tag):
+    """(11a) ``python -m repro_torch.launch.sweep`` over the twelve archs
+    x four shapes x both meshes in a subprocess (the meta device: the
+    host's CPU); every cell must be ``ok``."""
+    from repro_torch.configs import ARCH_IDS
+    out = ROOT / "build" / "phase11a"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
+           ",".join(ARCH_IDS), "--both-meshes", "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=GRID_TIMEOUT)
+    secs = time.perf_counter() - t0
+    summary = out / "summary.json"
+    reports = json.loads(summary.read_text()) if summary.exists() else []
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"{tag} python -m repro_torch.launch.sweep --archs <all "
+        f"{len(ARCH_IDS)}> --both-meshes: exit {run.returncode} in "
+        f"{secs:.1f} s on the host (meta device); predictions in H100 "
+        f"units, per card of an even partition")
+    log(f"{tag} arch shape mesh: argument GiB/card, t_compute ms, "
+        f"t_memory ms, bottleneck, useful_flops_ratio")
+    for r in reports:
+        if r.get("status") != "ok":
+            log(f"{tag} {r.get('arch')} {r.get('shape')} {r.get('mesh')}: "
+                f"{r.get('status')} {r.get('error')}")
+            continue
+        log(f"{tag} {r['arch']} {r['shape']} {r['mesh']}: "
+            f"{r['mem_argument_size_in_bytes'] / 2**30:.3f} GiB, "
+            f"{r['t_compute'] * 1e3:.3f} ms, {r['t_memory'] * 1e3:.3f} ms, "
+            f"{r['bottleneck']}, {r['useful_flops_ratio']:.4f}")
+    n_ok = sum(r.get("status") == "ok" for r in reports)
+    log(f"{tag} {n_ok}/{len(reports)} cells ok")
+    if run.returncode != 0 or n_ok != GRID_CELLS:
+        _fail(f"{tag} {n_ok}/{GRID_CELLS} cells ok (exit "
+              f"{run.returncode}): {run.stderr[-2000:]}")
+
+
+def _on_card(torch, cfg, shape, specs):
+    """The step's arguments on the card, with the specs' shapes and
+    dtypes: weights drawn from seed 0 (the port's init, cast to each
+    leaf's dtype), the cache zeroed (positions -1), tokens from numpy
+    seed 0, and positions covering the whole cache (decode: the next
+    token of full rows; prefill: an empty cache)."""
+    from repro_torch.models.api import param_shapes
+    from repro_torch.models.transformer import draw_params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    drawn = draw_params(param_shapes(cfg), torch.bfloat16, generator=gen,
+                        device="cuda")
+
+    def cast(tree, spec):
+        return {k: cast(v, spec[k]) if isinstance(v, dict)
+                else v.to(spec[k].dtype) for k, v in tree.items()}
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else
+                torch.full(v.shape, -1 if k == "pos" else 0, dtype=v.dtype,
+                           device="cuda") for k, v in tree.items()}
+    params = cast(drawn, specs.args[0])
+    del drawn
+    b, s_kv = specs.args[4].shape
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, tuple(specs.args[2].shape)).astype(
+        np.int32)).cuda()
+    decode = shape.kind == "decode"
+    cache_len = torch.full((b,), s_kv - 1 if decode else 0,
+                           dtype=torch.int32, device="cuda")
+    kv_pos = torch.arange(s_kv, dtype=torch.int32,
+                          device="cuda")[None].repeat(b, 1)
+    return params, zeros(specs.args[1]), tokens, cache_len, kv_pos
+
+
+def _roofline_check(torch, tag, cfg, shape, mesh):
+    """(11b) One shape of llama3-8b on the card against its dry-run: the
+    allocation against the predicted argument bytes, the FLOPs counted on
+    the card against the calibrated count, and the median forward time
+    against the larger roofline term."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import dryrun_report
+    from repro_torch.launch.roofline import ByteCounter
+    from repro_torch.launch.specs import make_serve_specs
+    t0 = time.perf_counter()
+    rep = dryrun_report(cfg, shape, mesh)
+    step, specs = make_serve_specs(cfg, shape, mesh, multi_pod=False)
+    pred = rep["mem_argument_size_in_bytes"]
+    bound = max(rep["t_compute"], rep["t_memory"])
+    log(f"{tag} {cfg.name} {shape.name}: batch {shape.global_batch} x "
+        f"{shape.seq_len} on mesh {mesh.shape}; dry-run in "
+        f"{time.perf_counter() - t0:.2f} s on the host: argument "
+        f"{pred / 1e9:.3f} GB, {rep['flops_global']} FLOPs, "
+        f"{rep['bytes_per_device']:.6e} bytes; t_compute "
+        f"{rep['t_compute'] * 1e3:.3f} ms, t_memory "
+        f"{rep['t_memory'] * 1e3:.3f} ms ({rep['bottleneck']}-bound)")
+    _free(torch)
+    base = torch.cuda.memory_allocated()
+    args = _on_card(torch, cfg, shape, specs)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    rel = abs(alloc - pred) / pred
+    torch.cuda.reset_peak_memory_stats()
+
+    def calls():
+        with torch.no_grad():
+            step(*args)                              # warm-up
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(ROOFLINE_CALLS):
+                t = time.perf_counter()
+                logits, _ = step(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            with FlopCounterMode(display=False) as fc, ByteCounter() as bc:
+                step(*args)
+        return logits, times, fc.get_total_flops(), bc.total
+    (logits, times, flops, nbytes), _, launches = _counted(torch, calls)
+    peak = torch.cuda.max_memory_allocated() - base - alloc
+    med = statistics.median(times)
+    ratio = med / bound
+    want_shape = (shape.global_batch,
+                  1 if shape.kind == "decode" else shape.seq_len,
+                  cfg.vocab_size)
+    got_shape = tuple(logits.shape)
+    finite = bool(torch.isfinite(logits).all())
+    log(f"{tag} on the card: memory_allocated {alloc / 1e9:.3f} GB for "
+        f"the weights, the zeroed cache and the inputs (predicted "
+        f"{pred / 1e9:.3f} GB, off by {rel:.3e}; tol {ALLOC_RTOL}); "
+        f"FlopCounterMode {flops} FLOPs (dry-run {rep['flops_global']}, "
+        f"{'equal' if flops == rep['flops_global'] else 'DIFFERENT'}); "
+        f"bytes counted on the card {nbytes:.6e} (dry-run "
+        f"{rep['bytes_per_device']:.6e})")
+    log(f"{tag} forward ms {[round(1e3 * t, 3) for t in times]}, median "
+        f"{1e3 * med:.3f} ms = {ratio:.4f} x max(t_compute, t_memory) "
+        f"{1e3 * bound:.3f} ms (floor {ROOFLINE_FLOOR}); peak "
+        f"{peak / 2**30:.2f} GiB over the arguments' {alloc / 2**30:.2f} "
+        f"GiB; logits "
+        f"{got_shape} finite {finite}; launches {launches}")
+    del args, logits
+    _free(torch)
+    if rel > ALLOC_RTOL:
+        _fail(f"{tag} allocated {alloc} bytes against {pred} predicted")
+    if flops != rep["flops_global"]:
+        _fail(f"{tag} the card counted {flops} FLOPs, the dry-run "
+              f"{rep['flops_global']}")
+    if ratio < ROOFLINE_FLOOR:
+        _fail(f"{tag} the card beat the roofline: {ratio:.4f} x the bound")
+    if got_shape != want_shape or not finite:
+        _fail(f"{tag} logits of shape {got_shape} (want {want_shape}), "
+              f"finite {finite}")
+    if any(launches.values()):
+        _fail(f"{tag} a kernel of the repo launched: {launches}")
+    return ratio
+
+
+def phase_dryrun(torch):
+    """(11a) the dry-run grid on the host; (11b) llama3-8b's roofline on
+    a one-card mesh held against the card. No kernel of the repo runs
+    here."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.mesh import LogicalMesh
+    _dryrun_grid("[phase 11a]")
+    cfg = get_config(ROOFLINE_ARCH)
+    mesh = LogicalMesh({"data": 1, "model": 1})
+    for args in ROOFLINE_SHAPES:
+        _roofline_check(torch, f"[phase 11b] {args[0]}", cfg,
+                        InputShape(*args), mesh)
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -1919,7 +2121,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1962,6 +2164,8 @@ def main() -> int:
         timed(9, phase_ssm, torch)
     if 10 in phases:
         timed(10, phase_train, torch)
+    if 11 in phases:
+        timed(11, phase_dryrun, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

@@ -20,14 +20,17 @@ def param_shapes(cfg) -> Dict:
 
 def build_model(cfg, params: Optional[Dict] = None, *, device,
                 generator: Optional[torch.Generator] = None,
-                exact_moe: bool = False, remat: bool = True):
+                exact_moe: bool = False, remat: bool = True,
+                window_override: Optional[int] = None):
     """The model of ``cfg`` on ``device``: an :class:`EncDecModel` for an
     encoder-decoder config, else a :class:`DecoderModel` (``exact_moe``:
     its MoE layers drop nothing); ``params`` or a ``generator`` to draw
-    them, and ``remat`` (training recomputes each layer in the backward
-    pass), as their constructors take."""
+    them, ``remat`` (training recomputes each layer in the backward
+    pass) and ``window_override`` (every layer attends over that window),
+    as their constructors take."""
     if cfg.enc_dec:
         return EncDecModel(cfg, params, device=device, generator=generator,
-                           remat=remat)
+                           remat=remat, window_override=window_override)
     return DecoderModel(cfg, params, device=device, generator=generator,
-                        exact_moe=exact_moe, remat=remat)
+                        exact_moe=exact_moe, remat=remat,
+                        window_override=window_override)

@@ -24,7 +24,7 @@ from repro_torch.models.attention import attention_shapes
 from repro_torch.models.layers import mlp_shapes, rmsnorm, swiglu
 from repro_torch.models.transformer import (_ParamTree, cache_positions,
                                             check_device, draw_params,
-                                            layer_slice, model_dtype,
+                                            model_dtype, unstack_layers,
                                             token_nll)
 
 
@@ -47,15 +47,17 @@ def param_shapes(cfg) -> Dict:
 class EncDecModel(nn.Module):
     """Encoder-decoder: ``encode``, ``compute_cross_kv``, the
     slot-cache serving ``forward``, the training forward and ``loss``.
-    ``params``, ``device``, ``generator`` and ``remat`` as for
+    ``params``, ``device``, ``generator``, ``remat`` and
+    ``window_override`` (the decoder's self-attention window) as for
     :class:`~repro_torch.models.transformer.DecoderModel`."""
 
     def __init__(self, cfg, params: Optional[Dict] = None, *,
                  device, generator: Optional[torch.Generator] = None,
-                 remat: bool = True):
+                 remat: bool = True, window_override: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
+        self.window_override = window_override
         self.dtype = model_dtype(cfg)
         if params is None:
             if generator is None:
@@ -90,6 +92,12 @@ class EncDecModel(nn.Module):
                 "stack": {"k": zeros(s_kv), "v": zeros(s_kv)},
                 "cross_k": zeros(s_enc), "cross_v": zeros(s_enc)}
 
+    def layer_window(self, i: int) -> int:
+        """Decoder layer ``i``'s self-attention window (0 = full)."""
+        if self.window_override is not None:
+            return self.window_override
+        return self.cfg.layer_window(i)
+
     def _run(self, layer, train: bool, *args):
         """``layer(*args)``, recomputed in the backward pass when
         training with ``remat``."""
@@ -116,9 +124,8 @@ class EncDecModel(nn.Module):
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
-        for i in range(cfg.n_enc_layers):
-            x = self._run(self._enc_layer, train,
-                          layer_slice(params["enc_layers"], i), x, positions)
+        for lp in unstack_layers(params["enc_layers"]):
+            x = self._run(self._enc_layer, train, lp, x, positions)
         return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
     def compute_cross_kv(self, params: Dict, enc_out: torch.Tensor):
@@ -178,12 +185,11 @@ class EncDecModel(nn.Module):
                 positions = torch.arange(
                     x.shape[1], dtype=torch.int32,
                     device=x.device)[None].expand(b, -1)
-            ck, cv = self.compute_cross_kv(params, enc_out)
-            for i in range(cfg.n_layers):
-                x = self._run(self._dec_layer, True,
-                              layer_slice(params["layers"], i), x, positions,
-                              positions, None, None, cfg.layer_window(i),
-                              None, ck[i], cv[i])
+            for i, lp in enumerate(unstack_layers(params["layers"])):
+                ck, cv = attn.cross_kv(lp["cross"], cfg, enc_out)
+                x = self._run(self._dec_layer, True, lp, x, positions,
+                              positions, None, None, self.layer_window(i),
+                              None, ck, cv)
             return self._logits(params, x), None, zero
         positions, kv_pos, idx = cache_positions(
             cache, cache_len, x.shape[1], positions, kv_positions, rows)
@@ -197,16 +203,15 @@ class EncDecModel(nn.Module):
             cross = self.compute_cross_kv(params, enc_out)
             for k, a in zip(("cross_k", "cross_v"), cross):
                 cache[k].index_copy_(1, sel, a.to(cache[k].dtype))
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(unstack_layers(params["layers"])):
             lc = {k: a[i] for k, a in cache["stack"].items()}
             if cross is None:
                 ck, cv = (cache[k][i].index_select(0, sel)
                           for k in ("cross_k", "cross_v"))
             else:
                 ck, cv = cross[0][i], cross[1][i]
-            x = self._dec_layer(layer_slice(params["layers"], i), x,
-                                positions, kv_pos, idx, lc,
-                                cfg.layer_window(i), rows, ck, cv)
+            x = self._dec_layer(lp, x, positions, kv_pos, idx, lc,
+                                self.layer_window(i), rows, ck, cv)
         return self._logits(params, x), cache, zero
 
     def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:

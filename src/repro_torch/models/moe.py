@@ -19,6 +19,13 @@ input's dtype, as in the JAX package, but taken and summed per token in
 fp32 and cast once (the JAX package rounds each product and the sum to
 the input's dtype; the same values in fp32).
 
+On the ``meta`` device (the dry-run's shape-only forward) nothing can be
+routed: there are no values to sort or count. There the block runs the
+JAX package's capacity mode shape for shape instead, the kept rows
+scattered into an ``[E, C, d]`` buffer, three batched expert products
+over it and the weighted rows gathered back, so the dry-run counts the
+work of JAX's compiled step.
+
 Not ported: the JAX package's expert-parallel ``shard_map`` dispatch,
 which runs only under a TPU mesh with an ``experts`` rule.
 """
@@ -91,6 +98,10 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
     t = b * s
     xt = x.reshape(t, d)
     probs, gate_w, gate_idx = route(p, cfg, xt)
+    if x.device.type == "meta":
+        out, aux = _capacity_block_meta(p, cfg, xt, probs, gate_w, gate_idx,
+                                        capacity(t, cfg, exact))
+        return out.reshape(b, s, d), aux
 
     # load-balance auxiliary loss (Switch-style)
     ce = torch.bincount(gate_idx.reshape(-1), minlength=e).float() / (t * k)
@@ -114,6 +125,36 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
         sp = p[f"shared_{i}"]
         out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
     return out.reshape(b, s, d), aux
+
+
+def _capacity_block_meta(p: Dict, cfg, xt: torch.Tensor,
+                         probs: torch.Tensor, gate_w: torch.Tensor,
+                         gate_idx: torch.Tensor, cap: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's capacity-mode dispatch, shapes only (meta
+    tensors hold no values, so the slots are not those a sort would give):
+    the ``T * k`` pairs scattered into a zero ``[E, C, d]`` buffer, the
+    routed SwiGLU as three batched products over it, the weighted rows
+    gathered back and summed per token, then the shared experts."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    flat_e = gate_idx.reshape(-1)
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32)) / (t * k)
+    aux = e * torch.sum(probs.mean(0) * ce)
+    tok = torch.arange(t * k, device=xt.device) // k
+    slot = flat_e * cap + tok % cap
+    buf = torch.zeros((e * cap, d), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, slot, xt.index_select(0, tok))
+    y = swiglu(buf.view(e, cap, d), p["w_gate"], p["w_up"], p["w_down"])
+    contrib = y.view(e * cap, d).index_select(0, slot) \
+        * gate_w.reshape(-1, 1).to(xt.dtype)
+    out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
+    out.index_add_(0, tok, contrib)
+    for i in range(cfg.n_shared_experts):
+        sp = p[f"shared_{i}"]
+        out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return out, aux
 
 
 def dense_expert_outputs(p: Dict, cfg, xt: torch.Tensor

@@ -216,6 +216,18 @@ def layer_slice(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def unstack_layers(tree: Dict) -> list:
+    """Every layer of a stacked parameter tree, in order (views, no
+    copies). One ``unbind`` per leaf: its backward stacks the layers'
+    gradients once, where indexing each layer apart would give every
+    layer a zero-filled gradient of the whole stack to add up (bytes
+    quadratic in depth)."""
+    per = {k: unstack_layers(v) if isinstance(v, dict) else v.unbind(0)
+           for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 class DecoderModel(nn.Module):
     """Decoder of any stack kind: stacked ``[L, ...]`` parameters that
     the paged executor reads layer by layer, and the slot-cache serving
@@ -229,15 +241,19 @@ class DecoderModel(nn.Module):
     JAX constructor's keyword and default). ``remat`` recomputes each
     layer of the training forward in the backward pass
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
+    ``window_override`` gives every layer that attention window in place
+    of the config's (the dry-run's sliding-window variant).
     """
 
     def __init__(self, cfg, params: Optional[Dict] = None, *,
                  device, generator: Optional[torch.Generator] = None,
-                 exact_moe: bool = False, remat: bool = True):
+                 exact_moe: bool = False, remat: bool = True,
+                 window_override: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.exact_moe = exact_moe
         self.remat = remat
+        self.window_override = window_override
         self.n_dense = cfg.moe_dense_layers if cfg.is_moe else 0
         self.n_stack = cfg.n_layers - self.n_dense
         self.is_mla = cfg.mla_kv_lora_rank > 0
@@ -257,6 +273,12 @@ class DecoderModel(nn.Module):
 
     def _stack_kind(self) -> str:
         return stack_kind(self.cfg)
+
+    def layer_window(self, i: int) -> int:
+        """Layer ``i``'s attention window (0 = full attention)."""
+        if self.window_override is not None:
+            return self.window_override
+        return self.cfg.layer_window(i)
 
     # ------------------------------------------------------------------
     # the slot cache and the serving forward
@@ -372,11 +394,11 @@ class DecoderModel(nn.Module):
         first, for its window), each writing its cache in place; with no
         cache (training) each layer is recomputed in the backward pass
         when ``remat``."""
-        for i in range(stacked["ln1"].shape[0]):
+        for i, lp in enumerate(unstack_layers(stacked)):
             lc = None if stack_cache is None else {
                 k: a[i] for k, a in stack_cache.items()}
-            args = (kind, layer_slice(stacked, i), x, positions, kv_pos, idx,
-                    lc, self.cfg.layer_window(first + i), rows, aux, decode)
+            args = (kind, lp, x, positions, kv_pos, idx,
+                    lc, self.layer_window(first + i), rows, aux, decode)
             if lc is None and self.remat:
                 x, aux = checkpoint(self._layer, *args, use_reentrant=False)
             else:

@@ -3,7 +3,10 @@
 Every ``repro_torch`` module is imported in a fresh interpreter, which
 must end with neither ``jax`` nor ``repro`` (or any ``repro.*``) loaded.
 ``chip_smoke.py`` is held to the same rule, and refuses to run without a
-card. The entry points default to the card and raise without one.
+card. The entry points default to the card and raise without one, bar
+the dry-run (``repro_torch.launch.dryrun`` and ``sweep``), which is
+device-free by design: it counts the port's step on the meta device, as
+the JAX package's needs no TPU.
 """
 import ast
 import dataclasses
@@ -28,7 +31,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.training.trainer", "repro_torch.training.checkpoint",
-        "repro_torch.launch.train"} <= set(names)
+        "repro_torch.launch.train", "repro_torch.launch.dryrun",
+        "repro_torch.launch.sweep", "repro_torch.launch.specs",
+        "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+        "repro_torch.models.sharding"} <= set(names)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
