@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12]
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
@@ -109,7 +109,24 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    1% of the predicted argument bytes, ``FlopCounterMode`` over the run
    on the card equal to the calibrated count, and the median of 5
    synchronised forwards at least 0.9 x the larger roofline term (the
-   ratio printed). Phase 11 launches neither kernel of the repo.
+   ratio printed). Phase 11 launches neither kernel of the repo;
+12. expert parallelism: deepseek-v2-236b at full width cut to 2 layers
+   (1 dense + 1 MoE), bf16, drawn on the card from seed 0, on four ranks
+   of the card (spawned, gloo, a 2x2 data x model mesh; the ranks draw
+   in turn, each keeping its 80 of the 160 routed experts), each against
+   one process with every expert: (12a) the MoE block on x [4, 512, d]
+   (1024 tokens a data block) at the config's capacity factor, where
+   pairs drop, at E/k, where none do, and in exact mode (GSPMD's branch:
+   the blocks gathered over data, in bf16), all held to phase 8c's rule,
+   the dropped pairs and aux printed, then the routed experts'
+   gradients summed over the data axis; (12b) the model's logits and
+   loss on tokens [4, 513] at capacity factor E/k (the four ranks' loss
+   bit for bit one value, within 2e-3 of one process's, and each data
+   block's own mean farther than that from it); (12c) the ranks'
+   block forward and its all-reduce (device ms, median of 10 after a
+   barrier) beside one process's block, peak memory per rank and in the
+   parent, beside the card's name and power limit. Phase 12 launches
+   neither kernel of the repo.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -197,14 +214,19 @@ def _fail(msg: str) -> None:
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_env_build(torch):
-    """Print the card and versions; build every kernel."""
-    smi = subprocess.run(
+def _smi():
+    """The card's line of ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader``."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_env_build(torch):
+    """Print the card and versions; build every kernel."""
     log("[phase 1] nvidia-smi --query-gpu=name,power.limit:")
-    log(smi)
+    log(_smi())
     log(f"[phase 1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
@@ -1367,6 +1389,28 @@ def _moe_text(cfg):
     return text
 
 
+def _moe_rule(torch, p, cfg, xt):
+    """Phase 8c's tolerance of an MoE block's output on ``xt [T, d]``:
+    ``2^-6 * (S + P) + 2^-12`` (see :func:`_moe_oracle`), from every
+    expert's output ``y [E, T, d]`` (returned in fp32) and the gate
+    weights ``w [T, E]`` (returned too)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import swiglu
+    y, w = moe.dense_expert_outputs(p, cfg, xt)
+    yf = y.float()
+    del y
+    part = torch.einsum("etd,te->td", yf, w)
+    big = part.abs()
+    for i in range(cfg.n_shared_experts):
+        sp = p[f"shared_{i}"]
+        part = part + swiglu(xt, sp["w_gate"], sp["w_up"],
+                             sp["w_down"]).float()
+        big = torch.maximum(big, part.abs())
+    tol = 2.0 ** -6 * (torch.einsum("etd,te->td", yf.abs(), w) + big) \
+        + 2.0 ** -12
+    return tol, yf, w
+
+
 def _moe_oracle(torch, tag, model):
     """(8c) The first MoE layer of ``model`` at full width in bf16 on
     MOE_CHECK_TOKENS tokens: ``moe_block(exact=True)`` against the dense
@@ -1390,7 +1434,6 @@ def _moe_oracle(torch, tag, model):
     tokens of the rule's max err/tol must reach 10 (the smallest, and
     token 0's, are printed)."""
     from repro_torch.models import moe
-    from repro_torch.models.layers import swiglu
     from repro_torch.models.transformer import layer_slice
     cfg = model.cfg
     p = layer_slice(model.params["layers"]["moe"], 0)
@@ -1403,17 +1446,7 @@ def _moe_oracle(torch, tag, model):
     secs = time.perf_counter() - t0
     want = moe.moe_block_dense_ref(p, cfg, x)[0].float()
     got = got[0].float()
-    y, w = moe.dense_expert_outputs(p, cfg, x[0])
-    yf = y.float()
-    part = torch.einsum("etd,te->td", yf, w)
-    big = part.abs()
-    for i in range(cfg.n_shared_experts):
-        sp = p[f"shared_{i}"]
-        part = part + swiglu(x[0], sp["w_gate"], sp["w_up"],
-                             sp["w_down"]).float()
-        big = torch.maximum(big, part.abs())
-    tol = 2.0 ** -6 * (torch.einsum("etd,te->td", yf.abs(), w) + big) \
-        + 2.0 ** -12
+    tol, yf, w = _moe_rule(torch, p, cfg, x[0])
     ratio = ((got - want).abs() / tol).max().item()
     rows = torch.arange(MOE_CHECK_TOKENS, device=w.device)
     weak = torch.where(w > 0, w, float("inf")).argmin(-1)       # [T]
@@ -2100,6 +2133,372 @@ def phase_dryrun(torch):
                         InputShape(*args), mesh)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: expert parallelism over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+# deepseek-v2-236b at full width (160 routed experts top-6 + 2 shared,
+# capacity factor 1.25) cut to 2 layers (1 dense + 1 MoE), on four ranks
+# of one card as a 2x2 (data, model) mesh: each rank holds a data block
+# of tokens and 80 of the 160 routed experts. gloo: NCCL refuses two
+# ranks on one card.
+EP_ARCH, EP_LAYERS = "deepseek-v2-236b", 2
+EP_MESH, EP_AXES = (2, 2), ("data", "model")
+EP_RULES = {"batch": ("data",), "experts": "model", "model": "model"}
+# 12a: the block on x [4, 512, d], 1024 tokens a data block (JAX's
+# capacity at 1024 tokens: int(1024 * 6 * 1.25 / 160) + 1 = 49 rows an
+# expert); 12b: the model on tokens [4, 513]; inputs from this seed
+EP_BATCH, EP_SEQ, EP_SEED = 4, 512, 12
+# 12c: timed calls of the block (median), after one warm-up
+EP_CALLS = 10
+# experts of a gradient leaf summed over the data axis in one all-reduce
+EP_GRAD_CHUNK = 10
+# the routed experts' gradients, elementwise: |got - want| <= 2^-7 *
+# |want| + 2^-16 * (the leaf's largest |want|). Both run each expert on
+# the same rows of a data block; the one process adds the two blocks'
+# bf16 gradients and rounds once, the ranks' sum over the data axis is
+# taken in fp32: half a bf16 ulp apart (<= 2^-8 * |want|). One ulp and a
+# floor far below any expert's gradient scale give the rule.
+EP_GRAD_RTOL, EP_GRAD_FLOOR = 2.0 ** -7, 2.0 ** -16
+# 12b's loss, nats: the four ranks report one value, bit for bit, within
+# this of one process's. The first H100 run read 4.8e-4 (11.937130
+# against 11.937611); a rank that averaged its own block alone would be
+# off by its block's gap from the global mean, which the phase prints
+# and requires to exceed this
+EP_LOSS_TOL = 2e-3
+
+
+def _ep_blocks():
+    """Batch rows of the data axis's blocks."""
+    n = EP_BATCH // EP_MESH[0]
+    return [(i * n, (i + 1) * n) for i in range(EP_MESH[0])]
+
+
+def _events_ms(torch, fn, sync):
+    """Median of EP_CALLS device times of ``fn()`` from CUDA events, each
+    call started after ``sync()`` (a barrier of the ranks) and one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(EP_CALLS):
+        sync()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _err(got, want, tol):
+    """(max abs error, max error / tolerance)."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), (err / tol).max().item()
+
+
+def _ep_rank(rank, shared, outdir):
+    """One rank of phase 12 (spawned): :func:`_ep_readings` to
+    ``outdir/rank{rank}.json``. Any failure raises, which fails the
+    phase. The rank drops its handles of the parent's ``shared`` tensors
+    before it exits, so that the parent may free them."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_gloo, process_mesh
+    from repro_torch.models import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_gloo(f"file://{outdir}/store", rank, math.prod(EP_MESH))
+    try:
+        res = _ep_readings(torch, rank, process_mesh(EP_MESH, EP_AXES,
+                                                     "cuda"), shared)
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        shared.clear()
+        gc.collect()
+        sharding.set_rules(None)
+        dist.destroy_process_group()
+
+
+def _ep_readings(torch, rank, mesh, shared):
+    """One rank's work: its weights drawn in turn, then 12a's block and
+    gradients, 12b's model and 12c's timings; returns its readings."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, sharding
+    from repro_torch.models.collectives import reduce_from_group
+    from repro_torch.models.transformer import (DecoderModel, init_params,
+                                                layer_slice)
+    world = math.prod(EP_MESH)
+    i, j = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    data, experts = mesh.get_group("data"), mesh.get_group("model")
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS)
+    free = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    # the ranks draw the parent's weights in turn, each keeping its
+    # experts and freeing the rest before the next draws
+    t0 = time.perf_counter()
+    for turn in range(world):
+        if turn == rank:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            full = init_params(cfg, generator=gen, device="cuda")
+            params = sharding.shard_experts(full, mesh, EP_RULES)
+            del full
+            _free(torch)
+        dist.barrier()
+    res = dict(rank=rank, data=i, model=j,
+               draw_s=time.perf_counter() - t0,
+               held_gib=torch.cuda.memory_allocated() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    sharding.set_rules(EP_RULES, mesh)
+    lo, hi = _ep_blocks()[i]
+    p = layer_slice(params["layers"]["moe"], 0)
+    x = shared["x"][lo:hi]
+    e_loc = p["w_gate"].shape[0]
+
+    # 12a: with drops, without, and the routed experts' gradients
+    def block():
+        return moe.moe_block(p, cfg, x)
+    (out, aux), _, launches = _counted(torch, block)
+    res["drop"] = _err(out, shared["want"][lo:hi],
+                       shared["tol"][lo:hi])
+    res["aux"] = aux.item()
+    res["e_loc"] = e_loc
+    out, _ = moe.moe_block(p, free, x)
+    res["free"] = _err(out, shared["free_want"][lo:hi],
+                       shared["tol"][lo:hi])
+    # GSPMD's branch in bf16: exact mode gathers the blocks over data
+    out, _ = moe.moe_block(p, cfg, x, exact=True)
+    res["gspmd"] = _err(out, shared["free_want"][lo:hi],
+                        shared["tol"][lo:hi])
+    leaves = {k: p[k].detach().requires_grad_()
+              for k in sorted(moe.EXPERT_KEYS)}
+    out, _ = moe.moe_block(dict(p, **leaves), cfg, x)
+    grads = torch.autograd.grad(
+        (out.float() * shared["r"][lo:hi].float()).sum(),
+        list(leaves.values()))
+    del out, leaves
+    worst = {}
+    for k, g in zip(sorted(moe.EXPERT_KEYS), grads):
+        want = shared["grads"][k][j * e_loc:(j + 1) * e_loc]
+        floor = EP_GRAD_FLOOR * shared["grad_max"][k]
+        err, ratio = 0.0, 0.0
+        for c in range(0, e_loc, EP_GRAD_CHUNK):
+            got = g[c:c + EP_GRAD_CHUNK].float()
+            dist.all_reduce(got, group=data)         # over data
+            w = want[c:c + EP_GRAD_CHUNK].float()
+            e_abs, r_ = _err(got, w, EP_GRAD_RTOL * w.abs() + floor)
+            err, ratio = max(err, e_abs), max(ratio, r_)
+        worst[k] = (err, ratio)
+    res["grads"] = worst
+    del grads
+    _free(torch)
+
+    # 12c: the block and its all-reduce alone, device time
+    res["block_ms"] = _events_ms(torch, block, dist.barrier)
+    part = torch.zeros((x.shape[0] * x.shape[1], cfg.d_model),
+                       dtype=x.dtype, device="cuda")
+    res["reduce_ms"] = _events_ms(
+        torch, lambda: reduce_from_group(part, experts), dist.barrier)
+    res["reduce_bytes"] = part.numel() * part.element_size()
+
+    # 12b: the 2-layer model (nothing drops: capacity factor E/k)
+    model = DecoderModel(free, params, device="cuda")
+    tokens = shared["tokens"][lo:hi]
+    with torch.no_grad():
+        loss = model.loss(params, {"tokens": tokens})
+        logits = model.forward(params, tokens[:, :-1], None, None,
+                               train=True)[0]
+    res["loss"] = loss.item()
+    res["logits_err"] = (logits.float() - shared["logits"][lo:hi]
+                         .float()).abs().max().item()
+    res["logits_shape"] = list(logits.shape)
+    res["finite"] = bool(torch.isfinite(logits).all())
+    res["launches"] = launches
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def _ep_oracle(torch, cfg, model):
+    """What the ranks are held to, by one process with every expert,
+    block by block (the ranks' shapes, so the same routing to the bit):
+    ``moe_block(exact=False)`` (the shard_map branch's capacity at a
+    block's tokens) and ``moe_block(exact=True)`` with phase 8c's rule,
+    and the routed experts' gradients of the per-block calls; the global
+    aux; the 2-layer model's logits at capacity factor E/k, its loss
+    over the whole batch, and its loss over each data block alone (what
+    a rank that skipped the data axis's sum would report). Returns the
+    tensors the ranks read and the readings."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import DecoderModel, layer_slice
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    p = layer_slice(model.params["layers"]["moe"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(EP_SEED)
+    x = torch.randn((EP_BATCH, EP_SEQ, d), generator=gen,
+                    device="cuda").to(model.dtype)
+    r = torch.randn(x.shape, generator=gen, device="cuda").to(model.dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (EP_BATCH, EP_SEQ + 1),
+                           generator=gen, device="cuda")
+    want, free_want, tol, dropped = [], [], [], 0
+    for lo, hi in _ep_blocks():
+        xt = x[lo:hi].reshape(-1, d)
+        want.append(moe.moe_block(p, cfg, x[lo:hi])[0])
+        free_want.append(moe.moe_block(p, cfg, x[lo:hi], exact=True)[0])
+        tol.append(_moe_rule(torch, p, cfg, xt)[0].view(want[-1].shape))
+        _, _, idx = moe.route(p, cfg, xt)
+        dropped += int(moe.dispatch(idx, e, moe.capacity(
+            xt.shape[0], cfg, False))[2])
+        _free(torch)
+    probs, _, idx = moe.route(p, cfg, x.reshape(-1, d))
+    aux = e * torch.sum(probs.mean(0) * torch.bincount(
+        idx.reshape(-1), minlength=e).float() / (idx.numel()))
+    leaves = {n: p[n].detach().requires_grad_()
+              for n in sorted(moe.EXPERT_KEYS)}
+    q = dict(p, **leaves)
+    loss = sum((moe.moe_block(q, cfg, x[lo:hi])[0].float()
+                * r[lo:hi].float()).sum() for lo, hi in _ep_blocks())
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    del q, leaves, loss
+    one = DecoderModel(dataclasses.replace(cfg, capacity_factor=e / k),
+                       model.params, device="cuda")
+    with torch.no_grad():
+        loss = one.loss(one.params, {"tokens": tokens})
+        block_loss = [one.loss(one.params, {"tokens": tokens[lo:hi]})
+                      .item() for lo, hi in _ep_blocks()]
+        logits = torch.cat([one.forward(
+            one.params, tokens[lo:hi, :-1], None, None, train=True)[0]
+            for lo, hi in _ep_blocks()])
+    lo, hi = _ep_blocks()[0]
+    block_ms = _events_ms(torch, lambda: moe.moe_block(p, cfg, x[lo:hi]),
+                          lambda: None)
+    shared = dict(x=x, r=r, tokens=tokens, want=torch.cat(want),
+                  free_want=torch.cat(free_want), tol=torch.cat(tol),
+                  grads=grads, logits=logits,
+                  grad_max={n: g.abs().max().item()
+                            for n, g in grads.items()})
+    return shared, dict(dropped=dropped, aux=aux.item(), loss=loss.item(),
+                        block_loss=block_loss, block_ms=block_ms,
+                        capacity=moe.capacity(hi * EP_SEQ - lo * EP_SEQ,
+                                              cfg, False))
+
+
+def phase_expert_parallel(torch):
+    """(12a) deepseek-v2-236b's MoE block at full width on four ranks of
+    the card (a 2x2 data x model mesh over gloo): with JAX's drop rule
+    at a data block's capacity, without drops, in GSPMD's branch (exact
+    mode), and the routed experts' gradients, each against one process
+    with every expert; (12b) the
+    model cut to 2 layers: loss and logits under the ranks against one
+    process; (12c) device times of the ranks' block and its all-reduce
+    beside one process's block, and peak memory. Neither kernel of the
+    repo runs here."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderModel
+    full = get_config(EP_ARCH)
+    cfg = dataclasses.replace(full, n_layers=EP_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DecoderModel(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    log(f"[phase 12] {_describe(cfg, full)}; {_moe_text(cfg)}; capacity "
+        f"factor {cfg.capacity_factor}; weights drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    shared, one = _ep_oracle(torch, cfg, model)
+    _free(torch)
+    out = ROOT / "build" / "phase12"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_ep_rank, args=(shared, str(out)),
+                       nprocs=math.prod(EP_MESH), join=True,
+                       start_method="spawn")
+    wall = time.perf_counter() - t0
+    torch.cuda.ipc_collect()        # the ranks' handles of ``shared``
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(math.prod(EP_MESH))]
+    shutil.rmtree(out, ignore_errors=True)
+    t_loc = EP_BATCH * EP_SEQ // EP_MESH[0]
+    log(f"[phase 12a] mesh {dict(zip(EP_AXES, EP_MESH))} over gloo on "
+        f"the one card, {math.prod(EP_MESH)} ranks in {wall:.1f} s; each "
+        f"rank {t_loc} tokens and {ranks[0]['e_loc']} of "
+        f"{cfg.n_experts} experts ({ranks[0]['held_gib']:.2f} GiB held "
+        f"after the draws); capacity {one['capacity']} rows an "
+        f"expert a block; one process dropped {one['dropped']} of "
+        f"{EP_BATCH * EP_SEQ * cfg.top_k} pairs at the blocks' capacity")
+    fails = []
+    for r in ranks:
+        tag = f"[phase 12a] rank {r['rank']} (data {r['data']}, model " \
+            f"{r['model']})"
+        log(f"{tag}: with drops max abs err {r['drop'][0]:.4g}, max "
+            f"err/tol {r['drop'][1]:.4f}; without drops (factor E/k, "
+            f"against exact) {r['free'][0]:.4g}, {r['free'][1]:.4f}; "
+            f"GSPMD's branch (exact under the mesh) {r['gspmd'][0]:.4g}, "
+            f"{r['gspmd'][1]:.4f} (tol 2^-6*(S + P) + 2^-12, passes at "
+            f"<= 1); aux {r['aux']:.6f} "
+            f"(one process {one['aux']:.6f}); routed-expert gradients "
+            f"summed over data, max abs err / max err/tol: " + ", ".join(
+                f"{k} {e:.4g} / {q:.4f}" for k, (e, q) in
+                r["grads"].items()) + f" (tol 2^-7*|want| + 2^-16*max; "
+            f"launches {r['launches']}")
+        ratios = [r["drop"][1], r["free"][1], r["gspmd"][1]] + [
+            q for _, q in r["grads"].values()]
+        if not max(ratios) <= 1.0:
+            fails.append(f"{tag}: err/tol {max(ratios):.4f}")
+        if abs(r["aux"] - one["aux"]) > 1e-4 * abs(one["aux"]):
+            fails.append(f"{tag}: aux {r['aux']} != {one['aux']}")
+        if any(r["launches"].values()):
+            fails.append(f"{tag}: a kernel of the repo launched")
+        log(f"[phase 12b] rank {r['rank']}: loss {r['loss']!r} (one "
+            f"process {one['loss']!r}, |diff| "
+            f"{abs(r['loss'] - one['loss']):.3g}, tol {EP_LOSS_TOL}), "
+            f"logits {r['logits_shape']} max |diff| "
+            f"{r['logits_err']:.4f} (tol {LOGIT_TOL}), finite "
+            f"{r['finite']}")
+        if not (abs(r["loss"] - one["loss"]) <= EP_LOSS_TOL
+                and r["logits_err"] <= LOGIT_TOL and r["finite"]):
+            fails.append(f"[phase 12b] rank {r['rank']}: loss "
+                         f"{r['loss']} vs {one['loss']}, logits "
+                         f"{r['logits_err']}")
+    if len({r["loss"] for r in ranks}) != 1:
+        fails.append(f"[phase 12b] the ranks' losses differ: "
+                     f"{[r['loss'] for r in ranks]}")
+    gap = min(abs(b - one["loss"]) for b in one["block_loss"])
+    log(f"[phase 12b] one process's loss of each data block alone "
+        f"{one['block_loss']}: {gap:.3g} or more from the global mean")
+    if not gap > EP_LOSS_TOL:
+        fails.append(f"[phase 12b] a data block's own mean loss is within "
+                     f"{EP_LOSS_TOL} of the global one: the rule cannot "
+                     f"tell them apart")
+    if one["dropped"] == 0:
+        fails.append("[phase 12a] no pair dropped: the drop rule is not "
+                     "exercised")
+    log("[phase 12c] " + _smi())
+    mb = ranks[0]["reduce_bytes"] / 1e6
+    log(f"[phase 12c] block forward (device ms, median of {EP_CALLS} after "
+        f"a barrier) per rank: "
+        f"{[round(r['block_ms'], 3) for r in ranks]}; its all-reduce of "
+        f"the {mb:.1f} MB bf16 partial (summed in fp32 by gloo through the "
+        f"host) per rank: {[round(r['reduce_ms'], 3) for r in ranks]} ms; "
+        f"one process, a block of {t_loc} tokens with every expert: "
+        f"{one['block_ms']:.3f} ms")
+    log(f"[phase 12c] peak GiB per rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} (after the draws; "
+        f"held {[round(r['held_gib'], 2) for r in ranks]}); parent peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; draws "
+        f"{[round(r['draw_s'], 1) for r in ranks]} s")
+    del shared, model
+    _free(torch)
+    if fails:
+        _fail("; ".join(fails))
+
+
 # ``launches`` counts calls of the op; ``kernels_per_launch`` is measured
 # in phase 3's profiled calls, as the device kernels named by
 # DEVICE_KERNELS over the op's launches there
@@ -2121,7 +2520,7 @@ DEVICE_KERNELS = {
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2166,6 +2565,8 @@ def main() -> int:
         timed(10, phase_train, torch)
     if 11 in phases:
         timed(11, phase_dryrun, torch)
+    if 12 in phases:
+        timed(12, phase_expert_parallel, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

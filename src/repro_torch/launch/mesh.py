@@ -8,10 +8,20 @@ PPI's), and also the data-parallel axis across hosts for training shapes.
 The JAX package builds these meshes on host-faked devices; one process
 with one card can build no 256-device mesh, so here a mesh is only its
 axes and their sizes. The dry-run reads nothing else of it.
+
+A process mesh is the real thing: :func:`process_mesh` lays the ranks of
+an initialised ``torch.distributed`` default group (:func:`init_gloo`)
+out as a named ``DeviceMesh``, which ``models.sharding.set_rules`` hands
+to the model code (the expert-parallel MoE block).
 """
 from __future__ import annotations
 
-from typing import Dict
+import datetime
+import math
+from typing import Dict, Sequence
+
+# a rank that waits longer than this on a collective fails the run
+GROUP_TIMEOUT = datetime.timedelta(minutes=5)
 
 
 class LogicalMesh:
@@ -66,3 +76,31 @@ def sharding_rules(multi_pod: bool, cfg=None) -> dict:
         rules.update({"model": None, "heads": None, "ff": None,
                       "vocab": None, "seq": "model"})
     return rules
+
+
+def init_gloo(init_method: str, rank: int, world_size: int) -> None:
+    """The default process group over gloo (``init_method``: a
+    ``file://`` or ``tcp://localhost:<port>`` rendezvous). gloo on CUDA
+    tensors too: NCCL refuses two ranks on one card, and left to itself
+    ``init_device_mesh("cuda", ...)`` would pick it. A rank that waits
+    longer than ``GROUP_TIMEOUT`` on a collective raises."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=GROUP_TIMEOUT)
+
+
+def process_mesh(shape: Sequence[int], axes: Sequence[str], device):
+    """The ranks of the initialised default group as a ``DeviceMesh`` of
+    ``shape`` named by ``axes`` (rank ``r`` at the row-major coordinate
+    of ``r``) on ``device``'s type (``"cpu"`` or ``"cuda"``)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("process_mesh needs an initialised default "
+                           "process group (init_gloo)")
+    if math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"mesh {tuple(shape)} != world size "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(torch.device(device).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))

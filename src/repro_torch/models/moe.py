@@ -26,16 +26,36 @@ scattered into an ``[E, C, d]`` buffer, three batched expert products
 over it and the weighted rows gathered back, so the dry-run counts the
 work of JAX's compiled step.
 
-Not ported: the JAX package's expert-parallel ``shard_map`` dispatch,
-which runs only under a TPU mesh with an ``experts`` rule.
+Expert parallelism. Under a process mesh installed by
+:func:`repro_torch.models.sharding.set_rules` (a ``DeviceMesh``) the block
+runs in local view, as the JAX package's ``shard_map`` body does: each
+rank holds its data block of tokens (rows ``[i * t_loc, (i + 1) * t_loc)``
+at data coordinate ``i``), the replicated router and shared experts, and
+only its own routed experts (``[j * e_loc, (j + 1) * e_loc)`` at
+expert-axis coordinate ``j``, cut by
+:func:`repro_torch.models.sharding.shard_experts`). With an ``experts``
+rule, outside ``exact`` mode, and tokens that split evenly over the batch
+axis, each rank routes its block to its local experts (the pairs of other
+ranks' experts sorted into a bucket of their own), keeps the pairs below
+JAX's capacity at ``t_loc`` tokens and the global expert count, and the
+partial outputs, cast to the input's dtype, are summed over the expert
+axis. Otherwise the blocks are gathered over the data axis and the
+global capacity rule runs on all the tokens, the GSPMD result. Either
+way the shared experts are added after the sum, on every rank, and
+``aux`` is the global value (router means and expert counts summed over
+the data axis).
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.models.collectives import (block_sizes, copy_to_group,
+                                            gather_blocks, reduce_from_group)
 from repro_torch.models.layers import mlp_shapes, swiglu
+from repro_torch.models.sharding import axis_group, get_mesh, get_rules
 
 # leaves of the routed experts: [E, d, f] / [E, f, d] per layer
 EXPERT_KEYS = frozenset(("w_gate", "w_up", "w_down"))
@@ -103,28 +123,105 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
                                         capacity(t, cfg, exact))
         return out.reshape(b, s, d), aux
 
-    # load-balance auxiliary loss (Switch-style)
-    ce = torch.bincount(gate_idx.reshape(-1), minlength=e).float() / (t * k)
-    aux = e * torch.sum(probs.mean(0) * ce)
-
-    pairs, kept, _ = dispatch(gate_idx, e, capacity(t, cfg, exact))
-    tok = pairs // k
-    xs = xt[tok]                                  # kept rows, by expert
-    ys, off = [], 0
-    for ei, n in enumerate(kept.tolist()):
-        if n:
-            ys.append(swiglu(xs[off:off + n], p["w_gate"][ei],
-                             p["w_up"][ei], p["w_down"][ei]))
-            off += n
-    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    if ys:
-        w = gate_w.reshape(-1)[pairs].to(x.dtype).float()
-        out.index_add_(0, tok, torch.cat(ys).float() * w[:, None])
-    out = out.to(x.dtype)
+    if get_mesh() is not None:
+        out, aux = _moe_on_mesh(p, cfg, xt, probs, gate_w, gate_idx, exact)
+    else:
+        # load-balance auxiliary loss (Switch-style)
+        ce = torch.bincount(gate_idx.reshape(-1), minlength=e).float() \
+            / (t * k)
+        aux = e * torch.sum(probs.mean(0) * ce)
+        out = _local_experts(p, cfg, xt, gate_w, gate_idx, 0,
+                             capacity(t, cfg, exact)).to(x.dtype)
     for i in range(cfg.n_shared_experts):
         sp = p[f"shared_{i}"]
         out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
     return out.reshape(b, s, d), aux
+
+
+def _local_experts(p: Dict, cfg, xt: torch.Tensor, gate_w: torch.Tensor,
+                   gate_idx: torch.Tensor, e0: int, cap: int
+                   ) -> torch.Tensor:
+    """The routed experts ``[e0, e0 + e_loc)`` that ``p``'s expert leaves
+    hold (``e_loc`` of them) on ``xt [T, d]``: fp32 ``[T, d]``. When
+    they are not all ``cfg.n_experts``, the pairs of other experts go to
+    a last bucket ``e_loc`` of their own, so the stable sort ranks each
+    local pair as the sort over all experts does; pairs ranked at or past
+    ``cap`` drop. Each expert runs its SwiGLU on its kept rows, and the
+    rows' outputs times their gate weights (rounded to ``xt``'s dtype)
+    are summed per token."""
+    t, d = xt.shape
+    k = gate_idx.shape[1]
+    e_loc = p["w_gate"].shape[0]
+    if e_loc == cfg.n_experts:
+        pairs, kept, _ = dispatch(gate_idx, e_loc, cap)
+        kept = kept.tolist()
+    else:
+        le = gate_idx - e0
+        le = torch.where((le >= 0) & (le < e_loc), le, e_loc)
+        pairs, kept, _ = dispatch(le, e_loc + 1, cap)
+        kept = kept[:e_loc].tolist()
+        pairs = pairs[:sum(kept)]
+    tok = pairs // k
+    xs = xt[tok]                                  # kept rows, by expert
+    ys, off = [], 0
+    for ei, n in enumerate(kept):
+        if n:
+            ys.append(swiglu(xs[off:off + n], p["w_gate"][ei],
+                             p["w_up"][ei], p["w_down"][ei]))
+            off += n
+    out = torch.zeros((t, d), dtype=torch.float32, device=xt.device)
+    if ys:
+        w = gate_w.reshape(-1)[pairs].to(xt.dtype).float()
+        out.index_add_(0, tok, torch.cat(ys).float() * w[:, None])
+    return out
+
+
+def _moe_on_mesh(p: Dict, cfg, xt: torch.Tensor, probs: torch.Tensor,
+                 gate_w: torch.Tensor, gate_idx: torch.Tensor, exact: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed half of the block on this rank's tokens ``xt [t_loc,
+    d]`` under the installed process mesh: (out ``[t_loc, d]`` in
+    ``xt``'s dtype, before the shared experts; the global aux)."""
+    mesh, rules = get_mesh(), get_rules() or {}
+    e, k = cfg.n_experts, cfg.top_k
+    data = axis_group(mesh, rules.get("batch"))
+    m_ax = rules.get("experts")
+    experts = axis_group(mesh, m_ax)
+    n_m = 1 if m_ax is None else mesh[m_ax].size()
+    e_loc = e // n_m
+    e0 = 0 if m_ax is None else mesh.get_local_rank(m_ax) * e_loc
+    if p["w_gate"].shape[0] != e_loc:
+        raise ValueError(f"this rank holds {p['w_gate'].shape[0]} routed "
+                         f"experts, the mesh gives it {e_loc} of {e}: cut "
+                         f"the params with sharding.shard_experts")
+    sizes = block_sizes(xt.shape[0], data)
+    t, n_b = sum(sizes), len(sizes)
+
+    # the global load-balance loss: router means and expert counts
+    # summed over the data axis (the counts carry no gradient)
+    me = reduce_from_group(probs.sum(0), data) / t
+    counts = reduce_from_group(
+        torch.bincount(gate_idx.reshape(-1), minlength=e).float(), data)
+    aux = e * torch.sum(me * (counts / (t * k)))
+
+    # the tokens of a data block are replicated over the expert axis:
+    # their gradient (and the gate weights') sums over it
+    xl, gw = copy_to_group(xt, experts), copy_to_group(gate_w, experts)
+    if m_ax is not None and not exact and t % n_b == 0 and t >= n_b:
+        if len(set(sizes)) != 1:
+            raise ValueError(f"blocks of {sizes} rows: the expert-parallel "
+                             f"dispatch takes the data axis's even blocks")
+        part = _local_experts(p, cfg, xl, gw, gate_idx, e0,
+                              capacity(sizes[0], cfg, False))
+        return reduce_from_group(part.to(xt.dtype), experts), aux
+    # GSPMD's dispatch: the global capacity rule over all t tokens
+    start = sum(sizes[:0 if data is None else dist.get_rank(data)])
+    part = _local_experts(p, cfg, gather_blocks(xl, data, sizes),
+                          gather_blocks(gw, data, sizes),
+                          gather_blocks(gate_idx, data, sizes), e0,
+                          capacity(t, cfg, exact))
+    out = reduce_from_group(part.to(xt.dtype), experts)
+    return out[start:start + xt.shape[0]], aux
 
 
 def _capacity_block_meta(p: Dict, cfg, xt: torch.Tensor,

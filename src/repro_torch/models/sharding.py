@@ -1,22 +1,31 @@
-"""Name-based parameter partition specs over a logical mesh.
+"""Logical-axis rules over a process mesh, and name-based parameter
+partition specs.
 
-The counterpart of the name-based half of the JAX package's
-``models/sharding.py``: each parameter leaf gets a partition spec from its
-name (the last key of its path in the nested-dict tree), its rank and the
-logical-axis rules of :func:`repro_torch.launch.mesh.sharding_rules`; a
-sharded dimension that the mesh axes do not divide evenly is left whole.
-The specs are :class:`P` tuples of the port's own, whose entries are those
-of JAX's ``PartitionSpec``: a mesh-axis name, a tuple of names, or
-``None``.
+The counterpart of the JAX package's ``models/sharding.py``:
 
-Left out: the JAX package's ``set_rules``/``maybe_shard`` activation
-constraints. The port's models partition no activation (one process
-drives one card), so the specs here serve the dry-run's per-device
-memory accounting alone.
+* :func:`set_rules` installs a mapping from logical axis names to mesh
+  axis names, and the mesh, for the model code to read
+  (:func:`get_rules`, :func:`get_mesh`). The mesh is a
+  ``torch.distributed`` ``DeviceMesh`` whose ``mesh_dim_names`` are the
+  rules' values (for example ``("data", "model")``), over which the MoE
+  block dispatches its experts in parallel (``models/moe.py``). With no
+  rules installed (tests, one process) the models run as on one device.
+* Each parameter leaf gets a partition spec from its name (the last key
+  of its path in the nested-dict tree), its rank and the rules of
+  :func:`repro_torch.launch.mesh.sharding_rules`; a sharded dimension
+  that the mesh axes do not divide evenly is left whole. The specs are
+  :class:`P` tuples of the port's own, whose entries are those of JAX's
+  ``PartitionSpec``: a mesh-axis name, a tuple of names, or ``None``.
+  They serve the dry-run's per-device memory accounting, and
+  :func:`shard_experts` slices the routed experts by them.
+
+Left out: ``maybe_shard``. Each rank holds its own tensors, so there is
+no global array for an activation constraint to place, and its values
+are the identity.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 
 class P(tuple):
@@ -35,6 +44,37 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+_RULES: Optional[dict] = None
+_MESH = None
+
+
+def set_rules(rules: Optional[dict], mesh=None) -> None:
+    """Install ``rules`` and ``mesh`` for the model code (``None``: run
+    as one device). Every rank of the mesh installs the same rules."""
+    global _RULES, _MESH
+    _RULES = rules
+    _MESH = mesh
+
+
+def get_rules() -> Optional[dict]:
+    return _RULES
+
+
+def get_mesh():
+    return _MESH
+
+
+def axis_group(mesh, axes):
+    """The process group of one axis of ``mesh`` (a name, or a tuple of
+    one name, as a rule's value); ``None`` for no axis."""
+    if isinstance(axes, (tuple, list)):
+        if len(axes) > 1:
+            raise ValueError(f"rule {axes!r}: a process mesh takes one "
+                             f"axis per rule")
+        axes = axes[0] if axes else None
+    return None if axes is None else mesh.get_group(axes)
 
 
 def _base_spec(name: str, ndim: int, rules: dict,
@@ -125,4 +165,43 @@ def params_sharding_tree(params_or_shapes: Dict, mesh, rules: dict,
         else:
             spec = param_pspec(path + (k,), v, rules)
             out[k] = divisible_spec(spec, v.shape, mesh)
+    return out
+
+
+def shard_experts(params: Dict, mesh, rules: dict,
+                  path: tuple = ()) -> Dict:
+    """``params`` with every routed-expert leaf (``w_gate``, ``w_up``,
+    ``w_down`` under a ``moe`` key, not ``shared_*``) cut to this rank's
+    slice of the expert dimension, as :func:`param_pspec` shards it: the
+    block of ``E / n`` experts at this rank's coordinate on the spec's
+    mesh axis, which must be ``rules["experts"]``. The slices are copies
+    (the full leaf can be freed); every other leaf is kept as it is.
+    Raises ``ValueError`` when the axis does not divide ``E`` (JAX's
+    ``E // n`` would silently drop experts) or the spec shards another
+    axis."""
+    out = {}
+    for k, v in params.items():
+        where = path + (k,)
+        if isinstance(v, dict):
+            out[k] = shard_experts(v, mesh, rules, where)
+            continue
+        names = [n for n in where if isinstance(n, str)]
+        if k not in ("w_gate", "w_up", "w_down") or "moe" not in names \
+                or "shared_" in " ".join(names):
+            out[k] = v
+            continue
+        spec = param_pspec(where, v, rules)
+        dims = [(i, a) for i, a in enumerate(spec) if a is not None]
+        if len(dims) != 1 or dims[0][1] != rules.get("experts"):
+            raise ValueError(f"params{list(where)}: spec {spec} does not "
+                             f"shard the experts on rules['experts'] = "
+                             f"{rules.get('experts')!r}")
+        dim, axis = dims[0]
+        n, e = mesh[axis].size(), v.shape[dim]
+        if e % n:
+            raise ValueError(f"params{list(where)}: {e} experts do not "
+                             f"split over {n} ranks of {axis!r}")
+        e_loc = e // n
+        out[k] = v.narrow(dim, mesh.get_local_rank(axis) * e_loc,
+                          e_loc).clone()
     return out

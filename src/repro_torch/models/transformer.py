@@ -35,9 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
+from repro_torch.models.collectives import block_sizes, reduce_from_group
 from repro_torch.models.layers import (dense_init, mlp_shapes, rmsnorm,
                                        swiglu)
 from repro_torch.models.moe import EXPERT_KEYS, moe_block, moe_shapes
+from repro_torch.models.sharding import axis_group, get_mesh, get_rules
 from repro_torch.models.ssm import (FP32_SSM_KEYS, SSM_FIXED_INIT,
                                     SSM_INIT_SCALE, ssm_block, ssm_dims,
                                     ssm_shapes)
@@ -460,21 +462,37 @@ class DecoderModel(nn.Module):
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Next-token NLL (fp32 log-softmax) of the training forward,
         averaged over the batch's tokens; MoE models add ``0.01 * aux /
-        max(n_stack, 1)``. batch: ``{'tokens': [B, S+1]}`` or
+        max(n_stack, 1)``. Under a process mesh (``sharding.set_rules``)
+        the batch is this rank's block of the data axis and the mean is
+        the global one. batch: ``{'tokens': [B, S+1]}`` or
         ``{'embeddings': [B, S, d], 'labels': [B, S]}``."""
         if "embeddings" in batch:
             inputs, labels = batch["embeddings"], batch["labels"]
         else:
             inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         logits, _, aux = self.forward(params, inputs, None, None, train=True)
-        loss = token_nll(logits, labels)
+        if get_mesh() is None:
+            loss = token_nll(logits, labels)
+        else:
+            # this rank's rows of the global mean: the sums and the token
+            # counts of the data axis's blocks
+            data = axis_group(get_mesh(), (get_rules() or {}).get("batch"))
+            loss = -reduce_from_group(_label_logp(logits, labels).sum(),
+                                      data) \
+                / sum(block_sizes(labels.numel(), data))
         if self.cfg.is_moe:
             loss = loss + 0.01 * aux / max(self.n_stack, 1)
         return loss
 
 
+def _label_logp(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood ``[B, S]`` of ``labels`` under ``logits [B, S,
+    V]``, from an fp32 log-softmax."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return logp.gather(-1, labels.long()[..., None])[..., 0]
+
+
 def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels [B, S]`` under ``logits
     [B, S, V]``, from an fp32 log-softmax."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.long()[..., None])[..., 0].mean()
+    return -_label_logp(logits, labels).mean()

@@ -34,7 +34,8 @@ assert {"repro_torch.training.trainer", "repro_torch.training.checkpoint",
         "repro_torch.launch.train", "repro_torch.launch.dryrun",
         "repro_torch.launch.sweep", "repro_torch.launch.specs",
         "repro_torch.launch.mesh", "repro_torch.launch.roofline",
-        "repro_torch.models.sharding"} <= set(names)
+        "repro_torch.models.sharding",
+        "repro_torch.models.collectives"} <= set(names)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
@@ -55,6 +56,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     n_modules, leaked = int(out[0]), out[1].strip()
     assert n_modules >= 30
     assert leaked == "[]"
+
+
+_MESH_PROBE = r"""
+import sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import init_gloo, process_mesh
+from repro_torch.models import moe, sharding
+from repro_torch.models.transformer import DecoderModel, layer_slice
+init_gloo("file://" + sys.argv[1], 0, 1)
+rules = {"batch": ("data",), "experts": "model", "model": "model"}
+mesh = process_mesh((1, 1), ("data", "model"), "cpu")
+sharding.set_rules(rules, mesh)
+cfg = get_config("deepseek-v2-236b", smoke=True)
+model = DecoderModel(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+params = sharding.shard_experts(model.params, mesh, rules)
+out, aux = moe.moe_block(layer_slice(params["layers"]["moe"], 0), cfg,
+                         torch.ones(1, 4, cfg.d_model))
+loss = model.loss(params, {"tokens": torch.zeros(1, 5, dtype=torch.long)})
+sharding.set_rules(None)
+torch.distributed.destroy_process_group()
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "repro" or m.startswith("repro."))
+print(tuple(out.shape), bool(torch.isfinite(loss)), leaked)
+"""
+
+
+def test_process_mesh_path_imports_no_jax(tmp_path):
+    """The expert-parallel path (``init_gloo``, ``process_mesh``,
+    ``shard_experts``, ``moe_block`` and ``loss`` under the mesh) in a
+    fresh interpreter on a 1x1 mesh: it runs, and loads neither ``jax``
+    nor anything of the JAX package."""
+    run = subprocess.run([sys.executable, "-c", _MESH_PROBE,
+                          str(tmp_path / "store")], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "(1, 4, 256) True []"
 
 
 def test_chip_smoke_imports_no_jax():
