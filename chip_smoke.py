@@ -1948,8 +1948,12 @@ def phase_train(torch):
 # phase 11: the dry-run, and its roofline held against the card
 # ---------------------------------------------------------------------------
 
-# (11a) the grid: every arch x input shape x both production meshes
-GRID_CELLS, GRID_TIMEOUT = 96, 600
+# (11a) the partitioned grid, one arch of each family x the four input
+# shapes on the 16x16 mesh (the 96-cell grid of every arch and both
+# meshes takes minutes of host CPU: it runs off the card)
+GRID_ARCHS = ("llama3-8b", "kimi-k2-1t-a32b", "deepseek-v2-236b",
+              "mamba2-780m", "hymba-1.5b", "whisper-base")
+GRID_CELLS, GRID_TIMEOUT = 24, 600
 # (11b) llama3-8b on a one-card mesh, bf16 weights drawn on the card from
 # seed 0: decode of 8 rows over 32768 positions (16.1 GB of weights, 34.4
 # GB of KV) and one 8192-token prefill; the forward timed over
@@ -1964,14 +1968,13 @@ ALLOC_RTOL, ROOFLINE_FLOOR = 0.01, 0.9
 
 
 def _dryrun_grid(tag):
-    """(11a) ``python -m repro_torch.launch.sweep`` over the twelve archs
-    x four shapes x both meshes in a subprocess (the meta device: the
-    host's CPU); every cell must be ``ok``."""
-    from repro_torch.configs import ARCH_IDS
+    """(11a) ``python -m repro_torch.launch.sweep`` over ``GRID_ARCHS`` x
+    four shapes on the 16x16 mesh in a subprocess (the meta device and a
+    fake process group: the host's CPU); every cell must be ``ok``."""
     out = ROOT / "build" / "phase11a"
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
-           ",".join(ARCH_IDS), "--both-meshes", "--out", str(out)]
+           ",".join(GRID_ARCHS), "--out", str(out)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -1980,12 +1983,13 @@ def _dryrun_grid(tag):
     summary = out / "summary.json"
     reports = json.loads(summary.read_text()) if summary.exists() else []
     shutil.rmtree(out, ignore_errors=True)
-    log(f"{tag} python -m repro_torch.launch.sweep --archs <all "
-        f"{len(ARCH_IDS)}> --both-meshes: exit {run.returncode} in "
-        f"{secs:.1f} s on the host (meta device); predictions in H100 "
-        f"units, per card of an even partition")
-    log(f"{tag} arch shape mesh: argument GiB/card, t_compute ms, "
-        f"t_memory ms, bottleneck, useful_flops_ratio")
+    log(f"{tag} python -m repro_torch.launch.sweep --archs "
+        f"{','.join(GRID_ARCHS)}: exit {run.returncode} in {secs:.1f} s on "
+        f"the host (meta device, fake process group); predictions in "
+        f"H100 units, per card of the partitioned step")
+    log(f"{tag} arch shape mesh: argument GiB/card, temp GiB/card, "
+        f"t_compute ms, t_memory ms, t_collective ms, bottleneck, "
+        f"useful_flops_ratio")
     for r in reports:
         if r.get("status") != "ok":
             log(f"{tag} {r.get('arch')} {r.get('shape')} {r.get('mesh')}: "
@@ -1993,8 +1997,10 @@ def _dryrun_grid(tag):
             continue
         log(f"{tag} {r['arch']} {r['shape']} {r['mesh']}: "
             f"{r['mem_argument_size_in_bytes'] / 2**30:.3f} GiB, "
+            f"{r['mem_temp_size_in_bytes'] / 2**30:.3f} GiB, "
             f"{r['t_compute'] * 1e3:.3f} ms, {r['t_memory'] * 1e3:.3f} ms, "
-            f"{r['bottleneck']}, {r['useful_flops_ratio']:.4f}")
+            f"{r['t_collective'] * 1e3:.3f} ms, {r['bottleneck']}, "
+            f"{r['useful_flops_ratio']:.4f}")
     n_ok = sum(r.get("status") == "ok" for r in reports)
     log(f"{tag} {n_ok}/{len(reports)} cells ok")
     if run.returncode != 0 or n_ok != GRID_CELLS:
@@ -2517,10 +2523,390 @@ DEVICE_KERNELS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the partitioned dry-run's count held against a run on the card
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width cut to 2 layers, bf16, on four ranks of one
+# card as a 2x2 (data, model) mesh over gloo, laid out by the dry-run's
+# own partition specs: a prefill of tokens [4, 512], then one decode step
+P13_ARCH, P13_LAYERS = "llama3-8b", 2
+P13_BATCH, P13_PREFILL, P13_SEED = 4, 512, 13
+# 13b's MoE dispatch: deepseek-v2-236b's routed experts (phase 12's
+# model), 2048 tokens (1024 a data block) with random routing
+P13_EP_ARCH, P13_EP_TOKENS = "deepseek-v2-236b", 2048
+# the collectives gloo carries on CUDA tensors (torch 2.11): its
+# all-gather kills the rank (SIGSEGV), so a step that counts one fails
+# the phase before it runs
+P13_GLOO_CUDA = ("all-reduce", "reduce-scatter", "all-to-all")
+# 13a: the logits against one process by phase 8c's rule, elementwise:
+# |got - want| <= 2^-6 * (S + |want|) + 2^-12, S the sum of the absolute
+# products |h| @ |head| of the final hidden state h (the ranks round
+# each partial sum of a row-parallel product to bf16 before the
+# all-reduce: a few 2^-8 roundings of terms up to S)
+P13_RTOL, P13_FLOOR = 2.0 ** -6, 2.0 ** -12
+# 13c: the bytes a rank places for its arguments against the prediction
+P13_ARG_TOL = 0.01
+
+
+def _p13_specs(cfg):
+    """The dry-run's serving specs of the 2x2 mesh at a cache of 513
+    positions (the prefill and the decode step), and the rules."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.mesh import LogicalMesh, sharding_rules
+    from repro_torch.launch.specs import make_serve_specs
+    mesh = LogicalMesh(dict(zip(EP_AXES, EP_MESH)))
+    _, specs = make_serve_specs(
+        cfg, InputShape("prefill_32k", P13_PREFILL + 1, P13_BATCH,
+                        "prefill"), mesh, multi_pod=False)
+    return mesh, specs, sharding_rules(False, cfg)
+
+
+def _p13_steps(torch, model, params, cache, tokens, n_len):
+    """Prefill then one decode step; returns both logits and the
+    collectives of each ((kind, bytes) lists)."""
+    from repro_torch.launch.roofline import CollectiveCounter
+    from torch.distributed.tensor.experimental import implicit_replication
+    out, ops = [], []
+    with torch.no_grad(), implicit_replication():
+        for s, decode in ((slice(0, P13_PREFILL), False),
+                          (slice(P13_PREFILL, P13_PREFILL + 1), True)):
+            with CollectiveCounter() as cc:
+                logits = model.forward(params, tokens[:, s], cache,
+                                       n_len(s.start), decode=decode)[0]
+            out.append(logits)
+            ops.append([list(op) for op in cc.ops])
+    return out, ops
+
+
+def _p13_fake_counts(torch, cfg):
+    """The fake mesh's count of the same two steps (meta tensors of the
+    same shapes, the same mesh and rules), and of the MoE dispatch."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.roofline import CollectiveCounter, count_step
+    from repro_torch.launch.specs import distribute
+    from repro_torch.models import sharding
+    from repro_torch.models.api import build_model
+    from repro_torch.models.moe import ep_dispatch
+    _, specs, rules = _p13_specs(cfg)
+    params, cache = specs.args[0], specs.args[1]
+    model = build_model(cfg, params, device="meta")
+    tokens = torch.empty((P13_BATCH, P13_PREFILL + 1), dtype=torch.int32,
+                         device="meta")
+    with fake_mesh(EP_MESH, EP_AXES, device_type="cuda") as mesh:
+        sharding.set_rules(rules, mesh)
+        try:
+            dp = distribute(params, specs.pspecs[0], mesh)
+            dc = distribute(cache, specs.pspecs[1], mesh)
+            dt = distribute(tokens, specs.pspecs[2], mesh)
+
+            def n_len(start):
+                return distribute(torch.empty((P13_BATCH,), dtype=torch.int32,
+                                              device="meta"),
+                                  sharding.P(None), mesh)
+            _, ops = _p13_steps(torch, model, dp, dc, dt, n_len)
+
+            def prefill(p, c, t, n):
+                with torch.no_grad(), implicit_replication():
+                    return model.forward(p, t, c, n)[0]
+            temp = count_step(prefill, (dp, dc, dt[:, :P13_PREFILL],
+                                        n_len(0)))["temp"]
+            ecfg, xt, gw, gi, w = _p13_ep_args(torch, mesh, "meta")
+            with CollectiveCounter() as cc:
+                ep_dispatch(w, ecfg, xt, gw, gi)
+            ep_ops = [list(op) for op in cc.ops]
+        finally:
+            sharding.set_rules(None)
+    return ops, ep_ops, temp
+
+
+def _p13_ep_args(torch, mesh, device):
+    """13b's dispatch inputs as DTensors on ``mesh``: tokens, gate
+    weights and expert ids split over data (random, seed P13_SEED, the
+    same on every rank), and each rank's block of one layer's routed
+    experts (random, its own seed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import distribute
+    from repro_torch.models.sharding import P
+    cfg = get_config(P13_EP_ARCH)
+    e, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    t = P13_EP_TOKENS
+    if device == "meta":
+        xt = torch.empty((t, d), dtype=torch.bfloat16, device="meta")
+        gw = torch.empty((t, k), dtype=torch.float32, device="meta")
+        gi = torch.empty((t, k), dtype=torch.int64, device="meta")
+    else:
+        gen = torch.Generator(device=device).manual_seed(P13_SEED)
+        xt = torch.randn((t, d), generator=gen, device=device).to(
+            torch.bfloat16)
+        gw = torch.rand((t, k), generator=gen, device=device)
+        gi = torch.randint(0, e, (t, k), generator=gen, device=device)
+    tok = P("data", None)
+    ex = P("model", None, None)
+    shapes = {"w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    w = {}
+    for name, shape in shapes.items():
+        # each rank draws only its own block of experts
+        from torch.distributed.tensor import DTensor
+        from repro_torch.models.sharding import mesh_placements
+        loc = (shape[0] // mesh.size(1),) + shape[1:]
+        if device == "meta":
+            local = torch.empty(loc, dtype=torch.bfloat16, device="meta")
+        else:
+            g = torch.Generator(device=device).manual_seed(
+                P13_SEED + 1 + mesh.get_local_rank("model"))
+            local = (torch.randn(loc, generator=g, device=device)
+                     * d ** -0.5).to(torch.bfloat16)
+        w[name] = DTensor.from_local(
+            local, mesh, mesh_placements(ex, mesh), run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return (cfg, distribute(xt, tok, mesh), distribute(gw, tok, mesh),
+            distribute(gi, tok, mesh), w)
+
+
+def _p13_rank(rank, shared, outdir):
+    """One rank of phase 13 (spawned): its readings to
+    ``outdir/rank{rank}.json``; any failure raises."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_gloo, process_mesh
+    from repro_torch.models import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_gloo(f"file://{outdir}/store", rank, math.prod(EP_MESH))
+    try:
+        res = _p13_readings(torch, rank, process_mesh(EP_MESH, EP_AXES,
+                                                      "cuda"), shared)
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        shared.clear()
+        gc.collect()
+        sharding.set_rules(None)
+        dist.destroy_process_group()
+
+
+def _p13_readings(torch, rank, mesh, shared):
+    """13a-c on one rank: the weights drawn from seed 0 in turn and cut
+    to this rank's blocks by the specs, the two steps, their logits
+    against one process's, the collectives, the bytes placed."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.specs import Specs, distribute
+    from repro_torch.models import sharding
+    from repro_torch.models.moe import ep_dispatch
+    from repro_torch.models.sharding import local_shard
+    from repro_torch.models.transformer import DecoderModel, init_params
+    cfg = dataclasses.replace(get_config(P13_ARCH), n_layers=P13_LAYERS)
+    lmesh, specs, rules = _p13_specs(cfg)
+    base = torch.cuda.memory_allocated()
+    for turn in range(math.prod(EP_MESH)):
+        if turn == rank:
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            full = init_params(cfg, generator=gen, device="cuda")
+            params = distribute(full, specs.pspecs[0], mesh)
+            del full
+            _free(torch)
+        dist.barrier()
+    model = DecoderModel(cfg, specs.args[0], device="meta")
+    cache = distribute(_zero_cache(torch, specs.args[1]), specs.pspecs[1],
+                       mesh)
+    tokens = distribute(shared["tokens"], specs.pspecs[2], mesh)
+    placed = torch.cuda.memory_allocated() - base
+    sharded = [t for t in _leaves(params) if any(
+        p.is_shard() for p in t.placements)]
+    if not sharded or any(t.to_local().numel() * 4 != t.numel()
+                          and t.to_local().numel() * 2 != t.numel()
+                          for t in sharded):
+        raise RuntimeError("a sharded leaf is whole on this rank")
+    arg_meta = Specs(args=(specs.args[0], specs.args[1],
+                           torch.empty(tuple(tokens.shape),
+                                       dtype=torch.int32, device="meta")),
+                     pspecs=specs.pspecs[:3])
+    predicted = argument_bytes(arg_meta, lmesh)
+
+    def n_len(start):
+        return DTensor.from_local(
+            torch.full((P13_BATCH,), start, dtype=torch.int32,
+                       device="cuda"), mesh,
+            sharding.mesh_placements(sharding.P(None), mesh),
+            run_check=False)
+    sharding.set_rules(rules, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, ops = _p13_steps(torch, model, params, cache, tokens, n_len)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    res = dict(rank=rank, coord=mesh.get_coordinate(), placed=placed,
+               predicted=predicted, peak=peak, step_s=step_s, ops=ops)
+    for name, got in (("prefill", logits[0]), ("decode", logits[1])):
+        spec = _spec_of(got)
+        w = local_shard(shared[name], spec, mesh).float()
+        tol = local_shard(shared[name + "_tol"], spec, mesh)
+        loc = got.to_local().float()
+        err = (loc - w).abs()
+        res[name] = dict(shape=list(loc.shape),
+                         max_err=err.max().item(),
+                         ratio=(err / tol).max().item(),
+                         finite=bool(torch.isfinite(loc).all()),
+                         placements=[str(p) for p in got.placements])
+    del logits, cache, params
+    _free(torch)
+    ecfg, xt, gw, gi, w = _p13_ep_args(torch, mesh, "cuda")
+    from repro_torch.launch.roofline import CollectiveCounter
+    with CollectiveCounter() as cc:
+        out = ep_dispatch(w, ecfg, xt, gw, gi)
+    torch.cuda.synchronize()
+    res["ep_ops"] = [list(op) for op in cc.ops]
+    res["ep_finite"] = bool(torch.isfinite(out.to_local().float()).all())
+    return res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _spec_of(t):
+    """The partition spec of a DTensor's placements on its mesh."""
+    from repro_torch.models.sharding import P
+    names = t.device_mesh.mesh_dim_names
+    dims = [[] for _ in range(t.dim())]
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            dims[p.dim].append(names[i])
+    return P(*[tuple(d) if d else None for d in dims])
+
+
+def _zero_cache(torch, tree):
+    """A zeroed slot cache on the card of the meta cache ``tree``'s
+    shapes (positions -1: empty)."""
+    return {k: _zero_cache(torch, v) if isinstance(v, dict) else
+            torch.full(v.shape, -1 if k == "pos" else 0, dtype=v.dtype,
+                       device="cuda")
+            for k, v in tree.items()}
+
+
+def phase_partitioned(torch):
+    """(13a) llama3-8b at full width cut to 2 layers on four ranks of the
+    card (a 2x2 data x model mesh over gloo), laid out by the dry-run's
+    partition specs, against one process: a prefill of [4, 512] and a
+    decode step; (13b) each rank's collectives against the fake mesh's
+    count of the same steps, and of deepseek-v2-236b's expert dispatch
+    (one all-reduce); (13c) the bytes each rank places for its arguments
+    against ``argument_bytes``, its peak against arguments + temp.
+    Neither kernel of the repo runs here."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderModel
+    full = get_config(P13_ARCH)
+    cfg = dataclasses.replace(full, n_layers=P13_LAYERS)
+    ops_want, ep_want, temp = _p13_fake_counts(torch, cfg)
+    kinds = {k for step in ops_want for k, _ in step} \
+        | {k for k, _ in ep_want}
+    missing = sorted(kinds - set(P13_GLOO_CUDA))
+    log(f"[phase 13] {_describe(cfg, full)}; mesh {EP_MESH} {EP_AXES}; "
+        f"the fake mesh counts prefill {ops_want[0]}, decode "
+        f"{ops_want[1]}, MoE dispatch {ep_want}; temp "
+        f"{temp / 2**20:.1f} MiB/rank")
+    if missing:
+        _fail(f"[phase 13] the step issues {missing}, which gloo does not "
+              f"carry on CUDA tensors")
+    rng = np.random.default_rng(P13_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (P13_BATCH, P13_PREFILL + 1),
+        dtype=np.int32)).cuda()
+    from repro_torch.models import transformer
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = DecoderModel(cfg, device="cuda", generator=gen)
+    cache = model.init_cache(P13_BATCH, P13_PREFILL + 1)
+    head = model.params["head"].float().abs()
+    shared = {"tokens": tokens}
+    normed = []
+    norm = transformer.rmsnorm
+
+    def keep(*a, **k):          # the last norm of a forward: h
+        normed.append(norm(*a, **k))
+        return normed[-1]
+    transformer.rmsnorm = keep
+    try:
+        with torch.no_grad():
+            zero = torch.zeros((P13_BATCH,), dtype=torch.int32,
+                               device="cuda")
+            for name, s, n, dec in (
+                    ("prefill", slice(0, P13_PREFILL), 0, False),
+                    ("decode", slice(P13_PREFILL, None), P13_PREFILL,
+                     True)):
+                normed.clear()
+                shared[name] = model.forward(model.params, tokens[:, s],
+                                             cache, zero + n,
+                                             decode=dec)[0]
+                terms = normed[-1].float().abs() @ head
+                shared[name + "_tol"] = P13_RTOL * (
+                    terms + shared[name].float().abs()) + P13_FLOOR
+                del terms
+    finally:
+        transformer.rmsnorm = norm
+    del model, cache, head, normed
+    _free(torch)
+    out = ROOT / "build" / "phase13"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_p13_rank, args=(shared, str(out)),
+                       nprocs=math.prod(EP_MESH), join=True,
+                       start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(math.prod(EP_MESH))]
+    shared.clear()
+    _free(torch)
+    bad = []
+    for r in ranks:
+        tag = f"[phase 13] rank {r['rank']} {r['coord']}"
+        for name in ("prefill", "decode"):
+            x = r[name]
+            log(f"{tag} 13a {name}: logits block {x['shape']} "
+                f"{x['placements']}, max |err| {x['max_err']:.4f}, "
+                f"err/tol {x['ratio']:.3f}, finite {x['finite']}")
+            if not (x["finite"] and x["ratio"] <= 1.0):
+                bad.append(f"{tag} {name} logits: err/tol {x['ratio']}")
+        same = r["ops"] == ops_want
+        log(f"{tag} 13b collectives prefill {r['ops'][0]}, decode "
+            f"{r['ops'][1]}: equal to the count {same}; MoE dispatch "
+            f"{r['ep_ops']}: equal {r['ep_ops'] == ep_want}")
+        if not same or r["ep_ops"] != ep_want or not r["ep_finite"]:
+            bad.append(f"{tag} collectives {r['ops']} / {r['ep_ops']} "
+                       f"against the count {ops_want} / {ep_want}")
+        rel = abs(r["placed"] - r["predicted"]) / r["predicted"]
+        log(f"{tag} 13c arguments placed {r['placed'] / 2**30:.4f} GiB "
+            f"against argument_bytes {r['predicted'] / 2**30:.4f} GiB "
+            f"({rel * 100:.3f}%); peak over the steps "
+            f"{r['peak'] / 2**30:.3f} GiB against arguments + temp "
+            f"{(r['predicted'] + temp) / 2**30:.3f} GiB; the two steps "
+            f"{r['step_s'] * 1e3:.1f} ms (host clock, gloo through the "
+            f"host)")
+        if rel > P13_ARG_TOL:
+            bad.append(f"{tag} placed {r['placed']} vs {r['predicted']}")
+    log(f"[phase 13] four ranks in {wall:.1f} s; "
+        f"{_smi()}")
+    if bad:
+        _fail("; ".join(bad))
+
+
 def main() -> int:
     """Run the phases; exit 0 only if every phase passed."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="phases to run after phase 1 (2: kernels alone)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2567,6 +2953,8 @@ def main() -> int:
         timed(11, phase_dryrun, torch)
     if 12 in phases:
         timed(12, phase_expert_parallel, torch)
+    if 13 in phases:
+        timed(13, phase_partitioned, torch)
     log(f"[done] phases {sorted(phases)} passed in "
         f"{time.perf_counter() - t_start:.1f} s (seconds by phase: {secs})")
 

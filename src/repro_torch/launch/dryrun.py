@@ -3,12 +3,12 @@ report memory, FLOP, byte and roofline terms in H100 units.
 
 The JAX package lowers and compiles each step for 512 host-faked
 devices. Here the port's own step (the serving forward, or the training
-loss, its backward and AdamW) runs on ``device="meta"``: no card, no
-compiler and no allocation, so the dry-run needs no lock on a device
-count and runs in any process. Counts are global and spread evenly over
-the mesh's cards (:mod:`repro_torch.launch.roofline`); the argument size
-per card is exact under the partition specs of
-:mod:`repro_torch.launch.specs`.
+loss, its backward and AdamW) runs on ``device="meta"`` as ``DTensor``s
+laid out by the partition specs of :mod:`repro_torch.launch.specs`, on
+rank 0 of a fake process group of the mesh's size
+(:func:`~repro_torch.launch.mesh.fake_mesh`): no card, no compiler, no
+allocation and no other process. Counts are one card's
+(:mod:`repro_torch.launch.roofline`), collectives included.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
@@ -17,20 +17,27 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses as dc
 import json
+import math
 import sys
 import time
 from typing import Dict, Optional
 
-from repro_torch.configs import get_config, get_shape
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.roofline import (count_step, model_flops,
-                                         roofline_report, tensor_bytes)
-from repro_torch.launch.specs import leaves, make_specs
-from repro_torch.models.sharding import shard_count
+from torch.distributed.tensor.experimental import implicit_replication
 
-COUNT_KEYS = ("flops", "bytes", "output")
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch.mesh import (LogicalMesh, fake_mesh,
+                                     make_production_mesh, sharding_rules)
+from repro_torch.launch.roofline import (COLLECTIVE_KINDS, count_step,
+                                         model_flops, roofline_report,
+                                         tensor_bytes)
+from repro_torch.launch.specs import distribute, leaves, make_specs
+from repro_torch.models.sharding import P, set_rules, shard_count
+
+COUNT_KEYS = ("flops", "bytes", "output", "temp", "coll_count") \
+    + COLLECTIVE_KINDS
 
 
 def _mixed_windows(cfg) -> bool:
@@ -73,16 +80,93 @@ def _calibration_points(cfg):
             ("fb", dc.replace(cfg, n_layers=2))]
 
 
+@contextlib.contextmanager
+def partitioned(mesh, rules):
+    """Yields, for a logical ``mesh``, the ``DeviceMesh`` of its shape on
+    a fake process group, with ``rules`` installed for the model code
+    (``maybe_shard``, the MoE dispatch) and the tensors the model makes
+    itself (positions, masks) taken as replicated beside its ``DTensor``
+    arguments; the group and the rules go on exit."""
+    with fake_mesh(tuple(mesh.shape.values()), tuple(mesh.shape)) as dmesh:
+        set_rules(rules, dmesh)
+        try:
+            with implicit_replication():
+                yield dmesh
+        finally:
+            set_rules(None)
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def merged_axes(mesh, pspecs, rules):
+    """The same partition over fewer mesh axes: axes that no spec or rule
+    names are dropped (every card holds the same there), and adjacent
+    axes that every spec and rule names only together, in order (the
+    production meshes' ``("pod", "data")`` batch axes), become one axis
+    of their product. Each card's blocks, and so its counts, are those
+    of ``mesh``; DTensor plans its collectives over a 3-D mesh of 512
+    ranks far more slowly than over the 2-D one. Returns ``(mesh,
+    pspecs, rules)`` over the merged axes."""
+    uses = {_names(e) for spec in leaves(pspecs).values() for e in spec}
+    uses |= {_names(v) for v in rules.values()}
+    uses.discard(())
+    groups = [[a] for a in mesh.shape if any(a in u for u in uses)]
+
+    def joined(g1, g2):
+        run = tuple(g1 + g2)
+        for u in uses:
+            if set(run) & set(u) and not any(
+                    u[i:i + len(run)] == run for i in range(len(u))):
+                return False
+        return True
+    i = 0
+    while i + 1 < len(groups):
+        if joined(groups[i], groups[i + 1]):
+            groups[i:i + 2] = [groups[i] + groups[i + 1]]
+        else:
+            i += 1
+    name = {a: "+".join(g) for g in groups for a in g}
+
+    def rename(entry):
+        out = []
+        for a in _names(entry):
+            if not out or out[-1] != name[a]:
+                out.append(name[a])
+        return out[0] if len(out) == 1 else (tuple(out) or None)
+
+    def respec(tree):
+        if isinstance(tree, P):
+            return P(*map(rename, tree))
+        if isinstance(tree, dict):
+            return {k: respec(v) for k, v in tree.items()}
+        return tuple(map(respec, tree))
+    merged = LogicalMesh({"+".join(g): math.prod(mesh.shape[a] for a in g)
+                          for g in groups})
+    new_rules = {k: (rename(v) if v is not None else None)
+                 for k, v in rules.items()}
+    return merged, respec(pspecs), new_rules
+
+
 def step_counts(cfg, shape, mesh, multi_pod) -> Dict[str, int]:
-    """Global FLOPs, bytes moved and result bytes of one full-depth step
-    (no extrapolation)."""
+    """One card's counts (:func:`~repro_torch.launch.roofline.count_step`)
+    of one full-depth step partitioned over ``mesh`` (no extrapolation),
+    run over its :func:`merged_axes`."""
     step, specs = make_specs(cfg, shape, mesh, multi_pod=multi_pod)
-    return count_step(step, specs.args)
+    run_mesh, pspecs, rules = merged_axes(
+        mesh, specs.pspecs, sharding_rules(multi_pod, cfg))
+    with partitioned(run_mesh, rules) as dmesh:
+        return count_step(step, distribute(specs.args, pspecs, dmesh))
 
 
 def calibrated_counts(cfg, shape, mesh, multi_pod) -> Dict[str, int]:
-    """Global (flops, bytes, output) of the full depth, extrapolated from
-    steps counted at reduced depth (ints, so the extrapolation is exact)."""
+    """One card's :data:`COUNT_KEYS` at the full depth, extrapolated from
+    steps counted at reduced depth (ints, so the extrapolation is exact):
+    the collectives of each kind and their number with the FLOPs and
+    bytes, so ``collective_ops`` sums to the collective bytes."""
     pts = _calibration_points(cfg)
     counts = {name: step_counts(c, shape, mesh, multi_pod)
               for name, c in pts}
@@ -133,14 +217,15 @@ def dryrun_report(cfg, shape, mesh, *, multi_pod: bool = False,
     t_specs = time.time() - t0
 
     t1 = time.time()
-    key = (cfg, shape, calibrate)
+    key = (cfg, shape, calibrate, tuple(mesh.shape.items()), multi_pod)
     memo = {} if memo is None else memo
     if key not in memo:
         memo[key] = (calibrated_counts if calibrate else step_counts)(
             cfg, shape, mesh, multi_pod)
     counts = memo[key]
     report = roofline_report(counts, n_chips, model_flops(cfg, shape), {
-        "argument": arg_bytes, "output": counts["output"] // n_chips})
+        "argument": arg_bytes, "output": counts["output"],
+        "temp": counts["temp"]})
     if calibrate:
         report.update({"calibrated": True,
                        "t_calibrate_s": round(time.time() - t1, 2)})
@@ -169,11 +254,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
               f"{report['mem_argument_size_in_bytes'] / 2**30:.3f} "
               f"GiB/card, output "
               f"{report['mem_output_size_in_bytes'] / 2**30:.3f} GiB/card")
-        print(f"  counts: flops={report['flops_global']:.3e} "
-              f"bytes={report['bytes_per_device'] * mesh.size:.3e} "
-              f"(global)")
+        print(f"  memory: temp "
+              f"{report['mem_temp_size_in_bytes'] / 2**30:.3f} GiB/card")
+        print(f"  counts: flops={report['flops_per_device']:.3e} "
+              f"bytes={report['bytes_per_device']:.3e} "
+              f"collective={report['collective_bytes_per_device']:.3e} "
+              f"in {report['collective_count']} ops (per card)")
         print(f"  roofline (H100): compute={report['t_compute']*1e3:.3f}ms "
               f"memory={report['t_memory']*1e3:.3f}ms "
+              f"collective={report['t_collective']*1e3:.3f}ms "
               f"-> {report['bottleneck']}-bound "
               f"useful_flops={report['useful_flops_ratio']:.3f}")
     return report

@@ -5,9 +5,13 @@ Multi-pod:  2 x 256 as (pod=2, data=16, model=16) — the ``pod`` axis is
 the Cronus instance boundary (pod 0 = the CPI's slice, pod 1 = the
 PPI's), and also the data-parallel axis across hosts for training shapes.
 
-The JAX package builds these meshes on host-faked devices; one process
-with one card can build no 256-device mesh, so here a mesh is only its
-axes and their sizes. The dry-run reads nothing else of it.
+The JAX package builds these meshes on host-faked devices. Here a
+:class:`LogicalMesh` is only the axes and their sizes (the partition
+specs read nothing else), and :func:`fake_mesh` builds the real thing
+for one process: a ``DeviceMesh`` of any shape over a ``"fake"``
+process group, whose collectives move nothing. The dry-run runs its
+step on rank 0 of it as ``DTensor``s, so the partitioner places the
+collectives and each op runs at one card's shapes.
 
 A process mesh is the real thing: :func:`process_mesh` lays the ranks of
 an initialised ``torch.distributed`` default group (:func:`init_gloo`)
@@ -16,9 +20,10 @@ to the model code (the expert-parallel MoE block).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 # a rank that waits longer than this on a collective fails the run
 GROUP_TIMEOUT = datetime.timedelta(minutes=5)
@@ -46,6 +51,45 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return LogicalMesh(dict(zip(axes, shape)))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], axes: Sequence[str],
+              device_type: str = "cuda") -> Iterator:
+    """A ``DeviceMesh`` of ``shape`` named by ``axes``, as rank 0 of a
+    ``"fake"`` process group of ``prod(shape)`` ranks (no process, no
+    communication: a collective returns its input's shape unfilled). The
+    group is destroyed on exit, on error too. Raises ``RuntimeError`` if
+    a default group already exists: a run never borrows another's
+    group. ``device_type`` is the kind of card the mesh stands for, which
+    picks DTensor's collectives (on ``"cpu"`` a shard-to-shard move is an
+    all-gather, gloo having no all-to-all there; on ``"cuda"`` it is an
+    all-to-all); no card is touched either way."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a default process group already "
+                           "exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield flatten_axes(init_device_mesh(device_type, tuple(shape),
+                                            mesh_dim_names=tuple(axes)))
+    finally:
+        dist.destroy_process_group()
+
+
+def flatten_axes(mesh):
+    """``mesh`` with every run of two or more adjacent axes also
+    registered as one flattened axis, so that DTensor reduces a tensor
+    partial over several axes (a gradient of replicated weights) in one
+    collective over their ranks, as XLA does, not one per axis."""
+    names = mesh.mesh_dim_names
+    for i in range(len(names)):
+        for j in range(i + 2, len(names) + 1):
+            mesh[names[i:j]]._flatten()
+    return mesh
 
 
 def batch_axes(multi_pod: bool):
@@ -102,5 +146,6 @@ def process_mesh(shape: Sequence[int], axes: Sequence[str], device):
     if math.prod(shape) != dist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} != world size "
                          f"{dist.get_world_size()}")
-    return init_device_mesh(torch.device(device).type, tuple(shape),
-                            mesh_dim_names=tuple(axes))
+    return flatten_axes(init_device_mesh(torch.device(device).type,
+                                         tuple(shape),
+                                         mesh_dim_names=tuple(axes)))

@@ -32,7 +32,8 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.mesh import batch_axes, sharding_rules
 from repro_torch.models.api import build_model, param_shapes
-from repro_torch.models.sharding import (P, divisible_spec,
+from repro_torch.models.sharding import (P, divisible_spec, local_shard,
+                                         mesh_placements,
                                          params_sharding_tree)
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.trainer import make_train_step
@@ -235,6 +236,27 @@ def make_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
     shape's kind."""
     fn = make_train_specs if shape.kind == "train" else make_serve_specs
     return fn(cfg, shape, mesh, multi_pod=multi_pod)
+
+
+def distribute(args, pspecs, mesh, coordinate=None):
+    """``args`` (a tree of whole tensors, meta or not) as ``DTensor``s on
+    ``mesh`` (a ``DeviceMesh``), each leaf this rank's block under its
+    spec in ``pspecs`` (:func:`~repro_torch.models.sharding.local_shard`)
+    with the spec's placements (``mesh_placements``); a dimension the
+    spec's axes do not divide is left whole (``divisible_spec``). ``coordinate``:
+    the rank's coordinate on the mesh (default: this process's)."""
+    if isinstance(args, dict):
+        return {k: distribute(v, pspecs[k], mesh, coordinate)
+                for k, v in args.items()}
+    if isinstance(args, tuple):
+        return tuple(distribute(a, s, mesh, coordinate)
+                     for a, s in zip(args, pspecs))
+    from torch.distributed.tensor import DTensor
+    spec = divisible_spec(pspecs, args.shape, mesh)
+    return DTensor.from_local(
+        local_shard(args, spec, mesh, coordinate), mesh,
+        mesh_placements(spec, mesh), run_check=False, shape=args.shape,
+        stride=args.stride())
 
 
 def leaves(tree) -> Dict[str, object]:

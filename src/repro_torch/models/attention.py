@@ -25,15 +25,22 @@ values ("select", a gather and ``where`` over the whole sequence axis that
 GSPMD can keep sharded, and "scatter"), picked by an environment variable.
 Here the cache is written in place by one indexed store, with the values
 of the "select" mode: when a chunk is longer than the cache, only its first
-``S_kv`` tokens land.
+``S_kv`` tokens land. A cache held as a ``DTensor`` (the partitioned
+dry-run, a process mesh) is written by the "select" mode itself, which
+is elementwise in the cache's sequence axis and so keeps a
+sequence-sharded cache sharded, as it does under GSPMD.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import torch
+import functools
 
-from repro_torch.models.layers import rmsnorm
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.rope import position_encode
 
 NEG_INF = -1e30
@@ -81,6 +88,21 @@ def mla_shapes(cfg, n_layers: int) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``[..., heads * D]`` -> ``[..., heads, D]``. A ``DTensor`` whose
+    last dimension is split in blocks the heads do not divide is first
+    gathered along it (GSPMD's move for a sharding the reshape cannot
+    keep)."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        mesh = t.device_mesh
+        pl = [Replicate() if p.is_shard(last) and heads % mesh.size(i)
+              else p for i, p in enumerate(t.placements)]
+        if pl != list(t.placements):
+            t = t.redistribute(mesh, pl)
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
 # ---------------------------------------------------------------------------
 # cache write
 # ---------------------------------------------------------------------------
@@ -99,11 +121,38 @@ def scatter_tokens(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
     place; returns ``buf``. Row ``i`` of ``new`` goes to cache row
     ``rows[i]`` (default: ``i``). Only the first ``S_kv`` tokens of a
     longer chunk are written, as the JAX package's "select" mode does."""
+    if isinstance(buf, DTensor):
+        if rows is not None or new.shape[0] != buf.shape[0]:
+            raise ValueError("a DTensor cache is written whole-batch "
+                             "(rows=None, every row)")
+        buf.copy_(select_write(buf, new, idx))
+        return buf
     n = min(new.shape[1], buf.shape[1])
     if rows is None:
         rows = torch.arange(new.shape[0], device=buf.device)
     buf[rows[:, None], idx[:, :n].long()] = new[:, :n].to(buf.dtype)
     return buf
+
+
+def select_write(buf: torch.Tensor, new: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """The JAX package's "select" write, out of place: ``buf [B, S_kv,
+    ...]`` with ``new [B, S_q, ...]`` at ``idx [B, S_q]`` (contiguous mod
+    ``S_kv``), every slot taking the token that lands on it, or keeping
+    its value (a compare and ``where`` for one token, a gather for a
+    chunk)."""
+    s_kv, c = buf.shape[1], new.shape[1]
+    tail = (1,) * (new.dim() - 2)
+    slots = torch.arange(s_kv, dtype=idx.dtype, device=buf.device)[None, :]
+    new = new.to(buf.dtype)
+    if c == 1:
+        hit = (slots == idx).reshape(idx.shape[0], s_kv, *tail)
+        return torch.where(hit, new, buf)
+    j = (slots - idx[:, :1]) % s_kv                       # [B, S_kv]
+    mask = (j < c).reshape(j.shape + tail)
+    src = j.clamp(max=c - 1).long().reshape(j.shape + tail).expand(
+        (-1, -1) + tuple(new.shape[2:]))
+    return torch.where(mask, new.gather(1, src), buf)
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +206,16 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B,Sq,H,D]; k,v [B,Skv,Kv,D]; q_pos [B,Sq]; kv_pos [B,Skv].
     """
+    m, lse, acc = blocked_partials(q, k, v, q_pos, kv_pos, window, scale,
+                                   block_q, block_k)
+    return _blocked_out(q, lse, acc)
+
+
+def blocked_partials(q, k, v, q_pos, kv_pos, window, scale: float,
+                     block_q: int = 512, block_k: int = 1024):
+    """The running ``(m, l, acc)`` of :func:`blocked_gqa_attend` after the
+    last KV block, unnormalised: ``[B, nq, Kv, g, bq]`` twice and ``[B,
+    nq, Kv, g, bq, D]``, fp32."""
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -197,10 +256,197 @@ def blocked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + torch.einsum(
             "bnkgqs,bskd->bnkgqd", p.to(vblk.dtype).float(), vblk.float())
         m = m_new
+    return m, lse, acc
+
+
+def _blocked_out(q: torch.Tensor, lse: torch.Tensor,
+                 acc: torch.Tensor) -> torch.Tensor:
+    """``acc / l`` of :func:`blocked_partials` as ``[B, Sq, H, D]`` in
+    ``q``'s dtype (rows with no valid key zero)."""
+    b, sq, h, dh = q.shape
+    nq, bq = acc.shape[1], acc.shape[4]
     safe = torch.where(lse == 0.0, 1.0, lse)
     out = acc / safe[..., None]                               # [B,nq,Kv,g,bq,D]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * bq, h, dh)
     return out[:, :sq].to(q.dtype)
+
+
+def _gqa_partials(q, k, v, mask, scale: float):
+    """:func:`gqa_attend`'s scores unnormalised: ``(m, l, acc)`` of
+    ``[B, Kv, g, Sq]`` twice and ``[B, Kv, g, Sq, D]``, fp32."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    scores = scores.masked_fill(~mask[:, :, None, :, :], NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(),
+                       v.float())
+    return m, p.sum(dim=-1), acc
+
+
+def _combine(m, lse, acc, mesh, dims):
+    """The partial softmaxes of the ranks of ``mesh``'s dimensions
+    ``dims`` (each over its own slice of the keys) merged: the global
+    max, then the rescaled sums, all-reduced over each dimension in
+    turn."""
+    from torch.distributed import _functional_collectives as funcol
+    m_all = m
+    for i in dims:
+        m_all = funcol.all_reduce(m_all, "max", (mesh, i))
+    c = torch.exp(m - m_all)
+    lse, acc = lse * c, acc * c[..., None]
+    for i in dims:
+        lse = funcol.all_reduce(lse, "sum", (mesh, i))
+        acc = funcol.all_reduce(acc, "sum", (mesh, i))
+    return lse, acc
+
+
+def _layout(q: torch.Tensor, k: torch.Tensor):
+    """How attention runs over one card's blocks, for ``DTensor`` queries
+    ``q [B, Sq, H, ...]`` and keys ``k [B, S, Kv, ...]`` (or a latent
+    ``[B, S, r]``, MLA's): per mesh dimension, the placements of (q, k,
+    q positions, key positions), as GSPMD lays attention out. Rows of the
+    batch stay split; query rows split by a "seq" rule stay split, the
+    keys gathered; heads stay split where the keys' heads split the same
+    way (the queries' group of each local key head is local); keys split
+    along the sequence (a sequence-sharded cache) stay split, the queries
+    gathered, and those dimensions are returned (``split``): each rank's
+    partial softmax is combined over them. Returns ``(placements,
+    split)``, the placements a tuple of four lists."""
+    rep = Replicate()
+    out = ([], [], [], [])
+    split = []
+    heads = k.dim() == 4
+    for i, (a, c) in enumerate(zip(q.placements, k.placements)):
+        n = k.device_mesh.size(i)
+        if c.is_shard(0) or (a.is_shard(0) and not c.is_shard()):
+            row = (Shard(0),) * 4
+        elif c.is_shard(1) and a.is_shard(1):
+            row = (Shard(1), rep, Shard(1), rep)
+        elif c.is_shard(1):
+            row = (rep, Shard(1), rep, Shard(1))
+            split.append(i)
+        elif heads and (c.is_shard(2) or (a.is_shard(2)
+                                          and k.shape[2] % n == 0)):
+            row = (Shard(2), Shard(2), rep, rep)
+        elif a.is_shard(2) and not heads:
+            row = (Shard(2), rep, rep, rep)
+        elif a.is_shard(1):
+            row = (Shard(1), rep, Shard(1), rep)
+        else:
+            row = (rep,) * 4
+        for lst, pl in zip(out, row):
+            lst.append(pl)
+    return out, split
+
+
+def _grad_placements(mine, other):
+    """An input's gradient placements in a local attention region: a
+    ``Partial`` sum on each mesh dimension where it is whole while the
+    other operand is split (each rank's work gives part of it)."""
+    return tuple(Partial() if p.is_replicate() and o.is_shard() else p
+                 for p, o in zip(mine, other))
+
+
+def _local_attention(fn, queries, keys, q_pos, kv_pos):
+    """``fn(*queries, *keys, q_pos, kv_pos, split=, mesh=)`` on this
+    card's blocks of ``DTensor`` operands laid out by :func:`_layout`
+    (``queries`` laid out as the first, ``keys`` as theirs;
+    ``q_pos``/``kv_pos`` may be ``None``), the smallest region that runs
+    as local tensors (``local_map``): ``fn`` gets the mesh dimensions
+    ``split`` that cut the keys and combines its partial softmaxes over
+    them. Returns a ``DTensor`` laid out as the queries, whole over
+    ``split``."""
+    (qp, kp, qpp, kvp), split = _layout(queries[0], keys[0])
+    mesh = queries[0].device_mesh
+    args = [t.redistribute(mesh, qp) for t in queries] \
+        + [t.redistribute(mesh, kp) for t in keys]
+    places = [tuple(qp)] * len(queries) + [tuple(kp)] * len(keys)
+    grads = [_grad_placements(qp, kp)] * len(queries) \
+        + [_grad_placements(kp, qp)] * len(keys)
+    for t, pl in ((q_pos, qpp), (kv_pos, kvp)):
+        if t is None:
+            args.append(None)
+            places.append(None)
+            grads.append(None)
+        else:
+            args.append(_replicated(t, mesh).redistribute(mesh, pl))
+            places.append(tuple(pl))
+            grads.append(tuple(pl))
+    out_pl = [Replicate() if i in split else p for i, p in enumerate(qp)]
+
+    def body(*local):
+        # DTensor views the gradients that leave the region: contiguous
+        local = [t if t is None or not t.is_floating_point()
+                 else _ContiguousGrad.apply(t) for t in local]
+        return fn(*local, split=split, mesh=mesh)
+    return local_map(body, out_placements=out_pl,
+                     in_placements=tuple(places),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _replicated(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` as a ``DTensor`` on ``mesh``, whole on every rank if it is a
+    plain tensor."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_pos: Optional[torch.Tensor], kv_pos: Optional[torch.Tensor],
+           window, scale: float, blocked: bool = False) -> torch.Tensor:
+    """Softmax attention of ``q [B,Sq,H,D]`` over ``k, v [B,Skv,Kv,D]``
+    under the position mask (:func:`make_mask`; ``q_pos=None``: every key
+    valid), blocked (:func:`blocked_gqa_attend`) or not
+    (:func:`gqa_attend`). ``DTensor`` operands run over this card's
+    blocks (:func:`_local_attention`)."""
+    if isinstance(q, DTensor):
+        return _local_attention(
+            functools.partial(_gqa_local, window=window, scale=scale,
+                              blocked=blocked), [q], [k, v], q_pos, kv_pos)
+    return _gqa_local(q, k, v, q_pos, kv_pos, window=window, scale=scale,
+                      blocked=blocked)
+
+
+def _gqa_local(q, k, v, q_pos, kv_pos, *, window, scale, blocked,
+               split=(), mesh=None):
+    """:func:`attend` on local tensors; the partial softmaxes combined
+    over the mesh dimensions ``split`` that cut the keys."""
+    if blocked:
+        m, lse, acc = blocked_partials(q, k, v, q_pos, kv_pos, window,
+                                       scale)
+        if split:
+            lse, acc = _combine(m, lse, acc, mesh, split)
+        return _blocked_out(q, lse, acc)
+    if q_pos is None:
+        mask = torch.ones((q.shape[0], 1, q.shape[1], k.shape[1]),
+                          dtype=torch.bool, device=q.device)
+    else:
+        mask = make_mask(q_pos, kv_pos, window)
+    if not split:
+        return gqa_attend(q, k, v, mask, scale)
+    m, lse, acc = _gqa_partials(q, k, v, mask, scale)
+    lse, acc = _combine(m, lse, acc, mesh, split)
+    b, sq, h, dh = q.shape
+    out = (acc / lse[..., None]).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
 def _cache_rows(layer_cache: Dict, keys, b: int,
@@ -232,9 +478,9 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """
     b, sq, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, h, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, sq, kvh, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, sq, kvh, hd)
+    q = split_heads(linear(x, p["wq"]), h)
+    k = split_heads(linear(x, p["wk"]), kvh)
+    v = split_heads(linear(x, p["wv"]), kvh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -247,13 +493,9 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         scatter_tokens(layer_cache["k"], k, idx, rows)
         scatter_tokens(layer_cache["v"], v, idx, rows)
         ck, cv = _cache_rows(layer_cache, ("k", "v"), b, rows)
-    if sq * ck.shape[1] >= BLOCKED_ATTN_THRESHOLD and sq > 1:
-        out = blocked_gqa_attend(q, ck, cv, positions, kv_pos, window,
-                                 hd ** -0.5)
-    else:
-        mask = make_mask(positions, kv_pos, window)
-        out = gqa_attend(q, ck, cv, mask, hd ** -0.5)
-    out = out.reshape(b, sq, h * hd) @ p["wo"].to(x.dtype)
+    blocked = sq * ck.shape[1] >= BLOCKED_ATTN_THRESHOLD and sq > 1
+    out = attend(q, ck, cv, positions, kv_pos, window, hd ** -0.5, blocked)
+    out = linear(out.reshape(b, sq, h * hd), p["wo"])
     return out, layer_cache
 
 
@@ -285,12 +527,12 @@ def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
     hd_n, hd_r = cfg.mla_nope_head_dim, cfg.mla_rope_head_dim
     hd_v = cfg.mla_v_head_dim
 
-    c_kv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
-    k_pe = (x @ p["w_kpe"].to(x.dtype)).reshape(b, sq, 1, hd_r)
+    c_kv = rmsnorm(linear(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    k_pe = (linear(x, p["w_kpe"])).reshape(b, sq, 1, hd_r)
     k_pe = position_encode(k_pe, positions, cfg)[:, :, 0, :]
 
     if cfg.mla_q_lora_rank:
-        q_lat = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"],
+        q_lat = rmsnorm(linear(x, p["w_dq"]), p["q_norm"],
                         cfg.norm_eps)
         q = torch.einsum("bsr,rhe->bshe", q_lat, p["w_uq"].to(x.dtype))
     else:
@@ -309,16 +551,37 @@ def mla_attention_block(p: Dict, cfg, x: torch.Tensor,
     # absorb W_uk into q: scores over the latent directly
     q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(),
                          p["w_uk"].float())
-    scale = (hd_n + hd_r) ** -0.5
-    scores = (torch.einsum("bshr,btr->bhst", q_abs, cckv)
-              + torch.einsum("bshp,btp->bhst", q_pe.float(), ckpe)) * scale
-    mask = make_mask(positions, kv_pos, window)           # [B,1,Sq,Skv]
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out_lat = torch.einsum("bhst,btr->bshr", probs, cckv)
+    fn = functools.partial(_mla_local, window=window,
+                           scale=(hd_n + hd_r) ** -0.5)
+    if isinstance(q_abs, DTensor):
+        out_lat = _local_attention(fn, [q_abs, q_pe.float()], [cckv, ckpe],
+                                   positions, kv_pos)
+    else:
+        out_lat = fn(q_abs, q_pe.float(), cckv, ckpe, positions, kv_pos)
     out = torch.einsum("bshr,rhv->bshv", out_lat, p["w_uv"].float())
-    out = out.reshape(b, sq, h * hd_v).to(x.dtype) @ p["wo"].to(x.dtype)
+    out = linear(out.reshape(b, sq, h * hd_v).to(x.dtype), p["wo"])
     return out, layer_cache
+
+
+def _mla_local(q_abs, q_pe, cckv, ckpe, q_pos, kv_pos, *, window, scale,
+               split=(), mesh=None):
+    """MLA's attention over the latent on local tensors: ``q_abs [B, Sq,
+    H, r]`` and ``q_pe [B, Sq, H, p]`` against ``cckv [B, S, r]`` and
+    ``ckpe [B, S, p]`` (fp32) -> ``out_lat [B, Sq, H, r]``; the partial
+    softmaxes combined over the mesh dimensions ``split`` that cut the
+    latent's sequence."""
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, cckv)
+              + torch.einsum("bshp,btp->bhst", q_pe, ckpe)) * scale
+    mask = make_mask(q_pos, kv_pos, window)               # [B,1,Sq,Skv]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    if not split:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhst,btr->bshr", probs, cckv)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    lse, acc = _combine(m, e.sum(dim=-1),
+                        torch.einsum("bhst,btr->bhsr", e, cckv), mesh, split)
+    return (acc / lse[..., None]).permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -332,14 +595,13 @@ def encoder_attention(p: Dict, cfg, x: torch.Tensor,
     [B,S,d], positions [B,S] (for RoPE) -> [B,S,d]."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+    q = split_heads(linear(x, p["wq"]), h)
+    k = split_heads(linear(x, p["wk"]), kvh)
+    v = split_heads(linear(x, p["wv"]), kvh)
     q = position_encode(q, positions, cfg)
     k = position_encode(k, positions, cfg)
-    mask = torch.ones((b, 1, s, s), dtype=torch.bool, device=x.device)
-    out = gqa_attend(q, k, v, mask, hd ** -0.5)
-    return out.reshape(b, s, h * hd) @ p["wo"].to(x.dtype)
+    out = attend(q, k, v, None, None, 0, hd ** -0.5)
+    return linear(out.reshape(b, s, h * hd), p["wo"])
 
 
 def cross_attention(p: Dict, cfg, x: torch.Tensor, k_enc: torch.Tensor,
@@ -348,11 +610,9 @@ def cross_attention(p: Dict, cfg, x: torch.Tensor, k_enc: torch.Tensor,
     -> [B,Sq,d]. Every query sees every encoder position; no RoPE."""
     b, sq, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, h, hd)
-    mask = torch.ones((b, 1, sq, k_enc.shape[1]), dtype=torch.bool,
-                      device=x.device)
-    out = gqa_attend(q, k_enc, v_enc, mask, hd ** -0.5)
-    return out.reshape(b, sq, h * hd) @ p["wo"].to(x.dtype)
+    q = split_heads(linear(x, p["wq"]), h)
+    out = attend(q, k_enc, v_enc, None, None, 0, hd ** -0.5)
+    return linear(out.reshape(b, sq, h * hd), p["wo"])
 
 
 def cross_kv(p: Dict, cfg, enc_out: torch.Tensor
@@ -361,6 +621,6 @@ def cross_kv(p: Dict, cfg, enc_out: torch.Tensor
     encoder output ``[B,S_enc,d]``."""
     b, s, _ = enc_out.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(b, s, kvh, hd)
+    k = split_heads(linear(enc_out, p["wk"]), kvh)
+    v = split_heads(linear(enc_out, p["wv"]), kvh)
     return k, v

@@ -21,11 +21,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
-from repro_torch.models.layers import mlp_shapes, rmsnorm, swiglu
-from repro_torch.models.transformer import (_ParamTree, cache_positions,
-                                            check_device, draw_params,
-                                            model_dtype, unstack_layers,
-                                            token_nll)
+from repro_torch.models.layers import (embed, linear, mlp_shapes, rmsnorm,
+                                       swiglu)
+from repro_torch.models.sharding import maybe_shard
+from repro_torch.models.transformer import (_ParamTree, _stream,
+                                            cache_positions, check_device,
+                                            draw_params, model_dtype,
+                                            token_nll, unstack_layers)
 
 
 def param_shapes(cfg) -> Dict:
@@ -108,10 +110,11 @@ class EncDecModel(nn.Module):
     def _enc_layer(self, lp: Dict, x, positions):
         cfg = self.cfg
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn.encoder_attention(lp["attn"], cfg, h, positions)
+        x = x + _stream(attn.encoder_attention(lp["attn"], cfg, h,
+                                               positions))
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                          lp["mlp"]["w_down"])
+        return x + _stream(swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                                  lp["mlp"]["w_down"]))
 
     def encode(self, params: Dict, enc_emb: torch.Tensor,
                train: bool = False) -> torch.Tensor:
@@ -150,12 +153,12 @@ class EncDecModel(nn.Module):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a_out, _ = attn.attention_block(lp["attn"], cfg, h, positions,
                                         kv_pos, idx, lc, width, rows)
-        x = x + a_out
+        x = x + _stream(a_out)
         hc = rmsnorm(x, lp["ln_cross"], cfg.norm_eps)
-        x = x + attn.cross_attention(lp["cross"], cfg, hc, ck, cv)
+        x = x + _stream(attn.cross_attention(lp["cross"], cfg, hc, ck, cv))
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                          lp["mlp"]["w_down"])
+        return x + _stream(swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                                  lp["mlp"]["w_down"]))
 
     def forward(self, params: Dict, inputs: torch.Tensor,
                 cache: Optional[Dict], cache_len: Optional[torch.Tensor], *,
@@ -175,7 +178,8 @@ class EncDecModel(nn.Module):
         comes from it, positions default to ``arange(S)``, self-attention
         sees the sequence alone, and the returned cache is ``None``."""
         cfg = self.cfg
-        x = params["embed"].to(self.dtype)[inputs.long()]
+        x = maybe_shard(embed(params["embed"].to(self.dtype), inputs),
+                        "batch", "seq", None)
         b = x.shape[0]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if train:
@@ -205,8 +209,10 @@ class EncDecModel(nn.Module):
                 cache[k].index_copy_(1, sel, a.to(cache[k].dtype))
         for i, lp in enumerate(unstack_layers(params["layers"])):
             lc = {k: a[i] for k, a in cache["stack"].items()}
-            if cross is None:
-                ck, cv = (cache[k][i].index_select(0, sel)
+            if cross is None and rows is None:
+                ck, cv = (cache[k][i][:b] for k in ("cross_k", "cross_v"))
+            elif cross is None:
+                ck, cv = (cache[k][i].index_select(0, rows)
                           for k in ("cross_k", "cross_v"))
             else:
                 ck, cv = cross[0][i], cross[1][i]
@@ -216,7 +222,8 @@ class EncDecModel(nn.Module):
 
     def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        return x @ params["head"].to(x.dtype)
+        return maybe_shard(linear(x, params["head"]), "batch", "seq",
+                           "vocab")
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Next-token NLL (fp32 log-softmax) of the training forward.

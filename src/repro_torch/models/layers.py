@@ -1,11 +1,15 @@
-"""Basic layers: RMSNorm, SwiGLU MLP, its shapes and the truncated-normal
-init."""
+"""Basic layers: the embedding lookup, RMSNorm, SwiGLU MLP, its shapes and
+the truncated-normal init."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 
 def dense_init(shape: Sequence[int], *, generator: torch.Generator,
@@ -24,6 +28,45 @@ def dense_init(shape: Sequence[int], *, generator: torch.Generator,
     return w.mul_(std).to(dtype)
 
 
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``. A ``DTensor`` table split by vocabulary
+    is looked up in place: each rank takes the rows it holds (zeros for
+    the others) and the result is a partial sum over the vocabulary's
+    mesh dimensions, where indexing would gather the table."""
+    if not isinstance(table, DTensor) or not any(
+            p.is_shard(0) for p in table.placements):
+        return table[ids.long()]
+    mesh = table.device_mesh
+    v_dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    ids = ids.redistribute(mesh, [Replicate() if i in v_dims else p
+                                  for i, p in enumerate(ids.placements)])
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in v_dims)
+
+    def lookup(tab, idx):
+        block = 0
+        for i in v_dims:
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        rel = idx.long() - block * rows
+        hit = (rel >= 0) & (rel < rows)
+        return torch.where(hit[..., None], tab[rel.clamp(0, rows - 1)], 0)
+
+    out = [Partial() if i in v_dims else p
+           for i, p in enumerate(ids.placements)]
+    # each rank's ids give part of the table's gradient
+    tab_grad = [p if i in v_dims else
+                (Partial() if ids.placements[i].is_shard() else p)
+                for i, p in enumerate(table.placements)]
+    return local_map(lookup, out_placements=out,
+                     in_placements=(tuple(table.placements),
+                                    tuple(ids.placements)),
+                     in_grad_placements=(tuple(tab_grad),
+                                         tuple(ids.placements)),
+                     device_mesh=mesh)(table, ids)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm scaled by ``(1 + weight)``, computed in fp32 and cast back."""
@@ -34,11 +77,33 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (x * (1.0 + weight.float())).to(dt)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., k] @ w [k, n]`` in ``x``'s dtype. A ``DTensor`` product
+    whose weight is whole on every card and whose rows are split (the
+    batch and a "seq" rule) runs as each card's own rows' product
+    (``local_map``): some DTensor releases refuse to flatten two split
+    row dimensions for the product."""
+    w = w.to(x.dtype)
+    if (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and all(p.is_replicate() for p in w.placements)
+            and not any(p.is_shard(x.dim() - 1) or p.is_partial()
+                        for p in x.placements)):
+        grad_w = [Partial() if p.is_shard() else Replicate()
+                  for p in x.placements]
+        return local_map(torch.matmul, out_placements=list(x.placements),
+                         in_placements=(tuple(x.placements),
+                                        tuple(w.placements)),
+                         in_grad_placements=(tuple(x.placements),
+                                             tuple(grad_w)),
+                         device_mesh=x.device_mesh)(x, w)
+    return x @ w
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP. x:[...,d]; w_gate/w_up:[d,f]; w_down:[f,d]."""
-    h = F.silu(x @ w_gate.to(x.dtype)) * (x @ w_up.to(x.dtype))
-    return h @ w_down.to(x.dtype)
+    h = F.silu(linear(x, w_gate)) * linear(x, w_up)
+    return linear(h, w_down)
 
 
 def mlp_shapes(d: int, f: int, n_layers: int):

@@ -47,15 +47,19 @@ the data axis).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.collectives import (block_sizes, copy_to_group,
                                             gather_blocks, reduce_from_group)
 from repro_torch.models.layers import mlp_shapes, swiglu
-from repro_torch.models.sharding import axis_group, get_mesh, get_rules
+from repro_torch.models.sharding import (axis_group, get_mesh, get_rules,
+                                         maybe_shard)
 
 # leaves of the routed experts: [E, d, f] / [E, f, d] per layer
 EXPERT_KEYS = frozenset(("w_gate", "w_up", "w_down"))
@@ -118,6 +122,12 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
     t = b * s
     xt = x.reshape(t, d)
     probs, gate_w, gate_idx = route(p, cfg, xt)
+    if isinstance(xt, DTensor):
+        out, aux = _moe_dtensor(p, cfg, xt, probs, gate_w, gate_idx, exact)
+        # back to [B, S, d]: rows split as the batch rows of ``x`` are
+        rows = [Shard(0) if pl == Shard(0) else Replicate()
+                for pl in x.placements]
+        return out.redistribute(out.device_mesh, rows).reshape(b, s, d), aux
     if x.device.type == "meta":
         out, aux = _capacity_block_meta(p, cfg, xt, probs, gate_w, gate_idx,
                                         capacity(t, cfg, exact))
@@ -239,19 +249,119 @@ def _capacity_block_meta(p: Dict, cfg, xt: torch.Tensor,
     ce = torch.zeros(e, dtype=torch.float32, device=xt.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e, dtype=torch.float32)) / (t * k)
     aux = e * torch.sum(probs.mean(0) * ce)
-    tok = torch.arange(t * k, device=xt.device) // k
-    slot = flat_e * cap + tok % cap
-    buf = torch.zeros((e * cap, d), dtype=xt.dtype, device=xt.device)
-    buf.index_add_(0, slot, xt.index_select(0, tok))
-    y = swiglu(buf.view(e, cap, d), p["w_gate"], p["w_up"], p["w_down"])
-    contrib = y.view(e * cap, d).index_select(0, slot) \
-        * gate_w.reshape(-1, 1).to(xt.dtype)
-    out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
-    out.index_add_(0, tok, contrib)
+    out = _capacity_dispatch_meta(xt, gate_w, gate_idx, p["w_gate"],
+                                  p["w_up"], p["w_down"], cap)
     for i in range(cfg.n_shared_experts):
         sp = p[f"shared_{i}"]
         out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
     return out, aux
+
+
+def _capacity_dispatch_meta(xt, gate_w, gate_idx, w_gate, w_up, w_down,
+                            cap: int) -> torch.Tensor:
+    """The routed half of :func:`_capacity_block_meta` over the experts
+    that ``w_gate`` holds: ``[T, d]`` in ``xt``'s dtype."""
+    t, d = xt.shape
+    e, k = w_gate.shape[0], gate_idx.shape[1]
+    flat_e = gate_idx.reshape(-1).clamp(max=e - 1)
+    tok = torch.arange(t * k, device=xt.device) // k
+    slot = flat_e * cap + tok % cap
+    buf = torch.zeros((e * cap, d), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, slot, xt.index_select(0, tok))
+    buf = maybe_shard(buf.view(e, cap, d), "experts", None, None)
+    y = swiglu(buf, w_gate, w_up, w_down)
+    y = maybe_shard(y, "experts", None, None)
+    contrib = y.reshape(e * cap, d).index_select(0, slot) \
+        * gate_w.reshape(-1, 1).to(xt.dtype)
+    out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
+    out.index_add_(0, tok, contrib)
+    return out
+
+
+def _moe_dtensor(p: Dict, cfg, xt, probs, gate_w, gate_idx, exact: bool):
+    """The MoE block after the router on ``DTensor`` tokens ``xt [T, d]``
+    (a mesh with ``sharding.set_rules`` installed): the load-balance loss
+    from each rank's expert counts (a partial sum over the batch axes),
+    the routed experts (:func:`ep_dispatch`), then the shared experts."""
+    mesh, rules = xt.device_mesh, get_rules() or {}
+    e, k = cfg.n_experts, cfg.top_k
+    b_dims = _dims(mesh, rules.get("batch"))
+
+    def counts(gi):
+        return torch.zeros(e, dtype=torch.float32, device=gi.device
+                           ).scatter_add_(0, gi.reshape(-1),
+                                          torch.ones(gi.numel(),
+                                                     device=gi.device))
+    part = [Partial() if i in b_dims and gate_idx.placements[i].is_shard()
+            else Replicate() for i in range(mesh.ndim)]
+    ce = local_map(counts, out_placements=part, device_mesh=mesh)(
+        gate_idx) / (xt.shape[0] * k)
+    aux = e * torch.sum(probs.mean(0) * ce)
+    out = ep_dispatch(p, cfg, xt, gate_w, gate_idx, exact)
+    for i in range(cfg.n_shared_experts):
+        sp = p[f"shared_{i}"]
+        out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return out, aux
+
+
+def ep_dispatch(p: Dict, cfg, xt, gate_w, gate_idx, exact: bool = False):
+    """The routed experts on ``DTensor`` tokens ``xt [T, d]`` with their
+    gate weights and expert ids ``[T, k]``, as JAX's ``shard_map`` body:
+    each card routes its block of tokens (split over the batch axes,
+    whole over the expert axis) to the experts it holds (``local_map``:
+    the capacity buffers on ``meta``, each expert's kept rows otherwise)
+    and the partial outputs are summed over the expert axis by one
+    all-reduce. Outside that dispatch's conditions (an ``experts`` rule,
+    not ``exact``, tokens that split evenly over the batch axes) every
+    card takes all the tokens and the global capacity rule. Returns
+    ``[T, d]`` laid out as ``xt``."""
+    mesh, rules = xt.device_mesh, get_rules() or {}
+    e, t = cfg.n_experts, xt.shape[0]
+    b_dims = _dims(mesh, rules.get("batch"))
+    m_dims = _dims(mesh, rules.get("experts"))
+    m_dim = m_dims[0] if m_dims else None
+    n_b = math.prod(mesh.size(i) for i in b_dims)
+    split = m_dim is not None and not exact and t % n_b == 0 and t >= n_b
+    tok_pl = [Shard(0) if split and i in b_dims else Replicate()
+              for i in range(mesh.ndim)]
+    exp_pl = [Shard(0) if i == m_dim else Replicate()
+              for i in range(mesh.ndim)]
+    cap = capacity(t // n_b if split else t, cfg, exact)
+    e_loc = e // (mesh.size(m_dim) if m_dim is not None else 1)
+
+    def dispatch(xl, gw, gi, wg, wu, wd):
+        if xl.device.type == "meta":
+            return _capacity_dispatch_meta(xl, gw, gi, wg, wu, wd, cap)
+        e0 = 0 if m_dim is None else mesh.get_local_rank(m_dim) * e_loc
+        return _local_experts({"w_gate": wg, "w_up": wu, "w_down": wd},
+                              cfg, xl, gw, gi, e0, cap).to(xl.dtype)
+
+    args = [xt.redistribute(mesh, tok_pl),
+            gate_w.to(xt.dtype).redistribute(mesh, tok_pl),
+            gate_idx.redistribute(mesh, tok_pl)] + [
+        p[w].redistribute(mesh, exp_pl)
+        for w in ("w_gate", "w_up", "w_down")]
+    # the tokens are whole over the expert axis: each card's experts give
+    # part of their gradient, and the outputs are partial sums there
+    on_m = [Partial() if i == m_dim else pl for i, pl in enumerate(tok_pl)]
+    out = local_map(
+        dispatch, out_placements=on_m,
+        in_placements=tuple(tuple(a.placements) for a in args),
+        in_grad_placements=(tuple(on_m), tuple(on_m), tuple(tok_pl))
+        + (tuple(exp_pl),) * 3, device_mesh=mesh)(*args)
+    return out.redistribute(mesh, tok_pl).redistribute(mesh, xt.placements)
+
+
+def _dims(mesh, entry) -> list:
+    """The indices of the mesh dimensions a rule's value names."""
+    names = list(mesh.mesh_dim_names)
+    return [names.index(a) for a in _names(entry)]
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
 def dense_expert_outputs(p: Dict, cfg, xt: torch.Tensor

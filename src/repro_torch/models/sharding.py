@@ -18,14 +18,23 @@ The counterpart of the JAX package's ``models/sharding.py``:
   ``PartitionSpec``: a mesh-axis name, a tuple of names, or ``None``.
   They serve the dry-run's per-device memory accounting, and
   :func:`shard_experts` slices the routed experts by them.
-
-Left out: ``maybe_shard``. Each rank holds its own tensors, so there is
-no global array for an activation constraint to place, and its values
-are the identity.
+* :func:`maybe_shard` is JAX's activation constraint: under installed
+  rules it redistributes a ``DTensor`` to the placements that the rules
+  give its logical axes (:func:`mesh_placements`); a plain tensor, or no
+  rules, passes through as it is. The model code calls it where the JAX
+  package does: after the embedding, on the logits and on the MoE
+  block's capacity buffers.
+* :func:`local_shard` cuts a whole tensor to one rank's block under a
+  spec, and :func:`mesh_placements` turns a spec into ``DTensor``
+  placements, so the dry-run and a process mesh lay a leaf out alike.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 class P(tuple):
@@ -64,6 +73,74 @@ def get_rules() -> Optional[dict]:
 
 def get_mesh():
     return _MESH
+
+
+def maybe_shard(x, *logical_axes):
+    """``x`` laid out as the installed rules place ``logical_axes`` (one
+    per dimension; ``None`` keeps a dimension whole): a ``DTensor`` is
+    redistributed to those placements, the counterpart of JAX's
+    ``with_sharding_constraint``; a plain tensor, or no rules, is
+    returned as it is. A dimension the mesh axes do not divide is left
+    whole (:func:`divisible_spec`)."""
+    if _RULES is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    spec = divisible_spec(P(*[_RULES.get(a) if a else None
+                              for a in logical_axes]), x.shape, mesh)
+    return x.redistribute(mesh, mesh_placements(spec, mesh))
+
+
+def _axis_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def mesh_placements(spec: P, mesh) -> List:
+    """The ``DTensor`` placements of ``spec`` on a ``DeviceMesh``: mesh
+    dimension ``i`` shards the tensor dimension whose entry names it, and
+    replicates it otherwise (an axis of size 1 replicates: it splits
+    nothing). An entry naming several axes must name them in the mesh's
+    order, which is JAX's major-to-minor split."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _axis_names(entry)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {tuple(names)}")
+        for i in where:
+            if mesh.size(i) > 1:
+                out[i] = Shard(dim)
+    return out
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh,
+                coordinate: Optional[List[int]] = None) -> torch.Tensor:
+    """The block of ``t`` that the rank at ``coordinate`` on ``mesh``
+    holds under ``spec`` (default: this rank's coordinate), a new
+    contiguous tensor. A dimension split over several axes is cut in
+    their mixed-radix order, major axis first; every split must be
+    even."""
+    names = list(mesh.mesh_dim_names)
+    sizes = _sizes(mesh)
+    coord = mesh.get_coordinate() if coordinate is None else coordinate
+    out = t
+    for dim, entry in enumerate(spec):
+        axes = _axis_names(entry)
+        if not axes:
+            continue
+        n = math.prod(sizes[a] for a in axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does "
+                             f"not split {n} ways")
+        block = 0
+        for a in axes:
+            block = block * sizes[a] + coord[names.index(a)]
+        step = t.shape[dim] // n
+        out = out.narrow(dim, block * step, step)
+    return out.clone(memory_format=torch.contiguous_format)
 
 
 def axis_group(mesh, axes):
@@ -125,15 +202,16 @@ def param_pspec(path: tuple, leaf, rules: dict) -> P:
     return base
 
 
+def _sizes(mesh) -> Dict[str, int]:
+    """Each axis's size, of a logical mesh or a ``DeviceMesh``."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return mesh.shape
+
+
 def _axis_size(mesh, axis) -> int:
-    if axis is None:
-        return 1
-    if isinstance(axis, (tuple, list)):
-        n = 1
-        for a in axis:
-            n *= mesh.shape[a]
-        return n
-    return mesh.shape[axis]
+    sizes = _sizes(mesh)
+    return math.prod(sizes[a] for a in _axis_names(axis))
 
 
 def divisible_spec(spec: P, shape, mesh) -> P:

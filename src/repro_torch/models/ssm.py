@@ -26,8 +26,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import linear, rmsnorm
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int, int, int]:
@@ -188,6 +190,82 @@ def _causal_conv(xbc: torch.Tensor, conv_cache: torch.Tensor,
     return out, new_cache.to(conv_cache.dtype)
 
 
+def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask):
+    """The block between its two products: the causal conv, the SSD scan
+    (or the recurrent step) and the gated norm, on ``zxbcdt [B, S,
+    in_proj]``; returns ``(y [B, S, d_inner], h_final, new conv)``."""
+    d_inner, h, hp, n, _ = ssm_dims(cfg)
+    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
+    xbc, new_conv = _causal_conv(xbc, conv, p["conv_w"], p["conv_b"],
+                                 token_mask=token_mask)
+    x_ssm = xbc[..., :d_inner]
+    b_in = xbc[..., d_inner:d_inner + n]
+    c_in = xbc[..., d_inner + n:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # [B,S,H]
+    if token_mask is not None:
+        dt = torch.where(token_mask[..., None], dt, 0.0)
+    a_neg = -torch.exp(p["A_log"].float())                   # [H]
+
+    bsz, s, _ = zxbcdt.shape
+    xh = x_ssm.reshape(bsz, s, h, hp)
+    if decode and s == 1:
+        y, h_final = _recurrent_step(xh[:, 0], dt[:, 0], a_neg, b_in[:, 0],
+                                     c_in[:, 0], h0)
+        y = y[:, None].to(xh.dtype)
+    else:
+        y, h_final = ssd_chunked(xh, dt, a_neg, b_in, c_in, h0,
+                                 cfg.ssm_chunk)
+    y = y + xh.float().to(y.dtype) \
+        * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, d_inner)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    return y, h_final, new_conv
+
+
+def _ssm_core_partitioned(p: Dict, cfg, zxbcdt, h0, conv, decode: bool,
+                          token_mask):
+    """:func:`_ssm_core` on ``DTensor``s as each card's own batch rows
+    (``local_map``), every other dimension whole: the projection's parts
+    (z, x, B, C, dt) are cut across the model axis's blocks, so each card
+    of that axis takes them whole and runs every head of its rows. The
+    state comes back laid out as it was given."""
+    mesh = zxbcdt.device_mesh
+    rows = [Shard(0) if pl == Shard(0) else Replicate()
+            for pl in zxbcdt.placements]
+    whole = [Replicate()] * mesh.ndim
+    h0, conv = _as_dtensor(h0, mesh), _as_dtensor(conv, mesh)
+    args = [zxbcdt.redistribute(mesh, rows), h0.redistribute(mesh, rows),
+            conv.redistribute(mesh, rows)]
+    places = [rows, rows, rows]
+    if token_mask is not None:
+        token_mask = _as_dtensor(token_mask, mesh).redistribute(mesh, rows)
+    weights = {k: _as_dtensor(v, mesh).redistribute(mesh, whole)
+               for k, v in p.items()}
+    # each card's rows give part of the weights' gradient
+    w_grad = [Partial() if pl.is_shard() else Replicate() for pl in rows]
+
+    def core(zx, h, c, mask, *w):
+        return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode, mask)
+    y, h_new, c_new = local_map(
+        core, out_placements=(rows, rows, rows),
+        in_placements=tuple(map(tuple, places)) + (
+            None if token_mask is None else tuple(rows),)
+        + (tuple(whole),) * len(weights),
+        in_grad_placements=tuple(map(tuple, places)) + (
+            None if token_mask is None else tuple(rows),)
+        + (tuple(w_grad),) * len(weights),
+        device_mesh=mesh)(*args, token_mask, *weights.values())
+    return (y, h_new.redistribute(mesh, h0.placements),
+            c_new.redistribute(mesh, conv.placements))
+
+
+def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def ssm_block(p: Dict, cfg, x: torch.Tensor, cache: Dict, *,
               decode: bool = False,
               token_mask: Optional[torch.Tensor] = None
@@ -199,31 +277,15 @@ def ssm_block(p: Dict, cfg, x: torch.Tensor, cache: Dict, *,
     recurrent state, so their dt is zeroed (decay 1, update 0). Unlike
     attention, SSM state has no positional mask. ``decode`` with one token
     takes the recurrent step."""
-    d_inner, h, hp, n, _ = ssm_dims(cfg)
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
-    xbc, new_conv = _causal_conv(xbc, cache["conv"], p["conv_w"],
-                                 p["conv_b"], token_mask=token_mask)
-    x_ssm = xbc[..., :d_inner]
-    b_in = xbc[..., d_inner:d_inner + n]
-    c_in = xbc[..., d_inner + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # [B,S,H]
-    if token_mask is not None:
-        dt = torch.where(token_mask[..., None], dt, 0.0)
-    a_neg = -torch.exp(p["A_log"].float())                   # [H]
-
-    bsz, s, _ = x.shape
-    xh = x_ssm.reshape(bsz, s, h, hp)
-    if decode and s == 1:
-        y, h_final = _recurrent_step(xh[:, 0], dt[:, 0], a_neg, b_in[:, 0],
-                                     c_in[:, 0], cache["h"])
-        y = y[:, None].to(xh.dtype)
+    zxbcdt = linear(x, p["in_proj"])
+    small = {k: p[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D",
+                               "gate_norm")}
+    if isinstance(zxbcdt, DTensor):
+        y, h_final, new_conv = _ssm_core_partitioned(
+            small, cfg, zxbcdt, cache["h"], cache["conv"], decode,
+            token_mask)
     else:
-        y, h_final = ssd_chunked(xh, dt, a_neg, b_in, c_in, cache["h"],
-                                 cfg.ssm_chunk)
-    y = y + xh.float().to(y.dtype) \
-        * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, d_inner)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+        y, h_final, new_conv = _ssm_core(small, cfg, zxbcdt, cache["h"],
+                                         cache["conv"], decode, token_mask)
+    out = linear(y, p["out_proj"])
     return out, {"h": h_final, "conv": new_conv}

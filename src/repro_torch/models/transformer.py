@@ -31,15 +31,17 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import attention_shapes
 from repro_torch.models.collectives import block_sizes, reduce_from_group
-from repro_torch.models.layers import (dense_init, mlp_shapes, rmsnorm,
-                                       swiglu)
+from repro_torch.models.layers import (dense_init, embed, linear,
+                                       mlp_shapes, rmsnorm, swiglu)
 from repro_torch.models.moe import EXPERT_KEYS, moe_block, moe_shapes
-from repro_torch.models.sharding import axis_group, get_mesh, get_rules
+from repro_torch.models.sharding import (axis_group, get_mesh, get_rules,
+                                         maybe_shard)
 from repro_torch.models.ssm import (FP32_SSM_KEYS, SSM_FIXED_INIT,
                                     SSM_INIT_SCALE, ssm_block, ssm_dims,
                                     ssm_shapes)
@@ -204,12 +206,14 @@ def cache_positions(cache: Dict, cache_len: torch.Tensor, s: int,
         positions = cache_len[:, None] + torch.arange(
             s, dtype=cache_len.dtype, device=dev)[None, :]
     idx = attn.write_indices(cache_len, s, cache["pos"].shape[1])
-    pos_rows = torch.arange(b, device=dev) if rows is None else rows
+    pos = cache["pos"]
     if kv_positions is None:
-        attn.scatter_tokens(cache["pos"], positions, idx, pos_rows)
+        attn.scatter_tokens(pos, positions, idx, rows)
+    elif rows is None:
+        pos[:b] = kv_positions.to(pos.dtype)
     else:
-        cache["pos"][pos_rows] = kv_positions.to(cache["pos"].dtype)
-    return positions, cache["pos"][pos_rows], idx
+        pos[rows] = kv_positions.to(pos.dtype)
+    return positions, (pos[:b] if rows is None else pos[rows]), idx
 
 
 def layer_slice(tree: Dict, i: int) -> Dict:
@@ -338,7 +342,7 @@ class DecoderModel(nn.Module):
         (a frontend's output) pass through in the model's dtype."""
         if inputs.dim() == 3:
             return inputs.to(self.dtype)
-        return params["embed"].to(self.dtype)[inputs.long()]
+        return embed(params["embed"].to(self.dtype), inputs)
 
     def _ssm(self, p: Dict, h, lc: Optional[Dict], rows, decode: bool,
              token_mask):
@@ -350,6 +354,13 @@ class DecoderModel(nn.Module):
             zero = {k: v[0] for k, v in self._ssm_cache(
                 1, b, h.device).items()}
             return ssm_block(p, self.cfg, h, zero)[0]
+        if rows is None and lc["h"].shape[0] == b:
+            # the whole batch: the state as it is, written back whole
+            out, new = ssm_block(p, self.cfg, h, lc, decode=decode,
+                                 token_mask=token_mask)
+            for k in ("h", "conv"):
+                lc[k].copy_(new[k].to(lc[k].dtype))
+            return out
         sel = torch.arange(b, device=h.device) if rows is None else rows
         state = {k: lc[k].index_select(0, sel) for k in ("h", "conv")}
         out, new = ssm_block(p, self.cfg, h, state, decode=decode,
@@ -370,14 +381,16 @@ class DecoderModel(nn.Module):
         token_mask = None if lc is None else positions >= 0
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if kind == "ssm":
-            return x + self._ssm(lp["ssm"], h, lc, rows, decode,
-                                 token_mask), aux
+            return x + _stream(self._ssm(lp["ssm"], h, lc, rows, decode,
+                                         token_mask)), aux
         fn = attn.mla_attention_block if self.is_mla \
             else attn.attention_block
         a_out, _ = fn(lp["attn"], cfg, h, positions, kv_pos, idx, lc, width,
                       rows)
+        a_out = _stream(a_out)
         if kind == "hybrid":
-            s_out = self._ssm(lp["ssm"], h, lc, rows, decode, token_mask)
+            s_out = _stream(self._ssm(lp["ssm"], h, lc, rows, decode,
+                                      token_mask))
             x = x + 0.5 * (rmsnorm(a_out, lp["ln_attn_out"], cfg.norm_eps)
                            + rmsnorm(s_out, lp["ln_ssm_out"], cfg.norm_eps))
         else:
@@ -385,9 +398,9 @@ class DecoderModel(nn.Module):
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         if kind == "moe":
             m_out, a = moe_block(lp["moe"], cfg, h2, exact=self.exact_moe)
-            return x + m_out, aux + a
-        return x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                          lp["mlp"]["w_down"]), aux
+            return x + _stream(m_out), aux + a
+        return x + _stream(swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                                  lp["mlp"]["w_down"])), aux
 
     def _run_stack(self, kind: str, stacked: Dict, first: int, x,
                    positions, kv_pos, idx, stack_cache: Optional[Dict],
@@ -435,7 +448,8 @@ class DecoderModel(nn.Module):
         and the returned cache is ``None``.
         """
         cfg = self.cfg
-        x = self.embed_inputs(params, inputs)
+        x = maybe_shard(self.embed_inputs(params, inputs), "batch", "seq",
+                        None)
         if train:
             if positions is None:
                 positions = torch.arange(
@@ -456,7 +470,7 @@ class DecoderModel(nn.Module):
                                  stack, rows, aux, decode)
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
-        logits = x @ head.to(x.dtype)
+        logits = maybe_shard(linear(x, head), "batch", "seq", "vocab")
         return logits, (None if train else cache), aux
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
@@ -471,7 +485,7 @@ class DecoderModel(nn.Module):
         else:
             inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         logits, _, aux = self.forward(params, inputs, None, None, train=True)
-        if get_mesh() is None:
+        if get_mesh() is None or isinstance(logits, DTensor):
             loss = token_nll(logits, labels)
         else:
             # this rank's rows of the global mean: the sums and the token
@@ -483,6 +497,14 @@ class DecoderModel(nn.Module):
         if self.cfg.is_moe:
             loss = loss + 0.01 * aux / max(self.n_stack, 1)
         return loss
+
+
+def _stream(out: torch.Tensor) -> torch.Tensor:
+    """A block's output laid out as the residual stream (rows over the
+    batch axes, whole over the model axis), so a row-parallel product's
+    partial sums are all-reduced before the residual add, as GSPMD does;
+    a plain tensor passes through."""
+    return maybe_shard(out, "batch", "seq", None)
 
 
 def _label_logp(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,9 @@ weight_decay · p`` taken in fp32, ``p ← (p − lr · delta)`` cast back to
 the parameter's dtype. ``torch.optim.AdamW`` orders the decay otherwise
 and clips nothing, so the update is written out over the leaves; it is
 functional: the inputs are left as they are and new trees are returned.
+On ``DTensor`` leaves (the partitioned dry-run) each gradient is laid out
+as its parameter once, and the global norm is one reduction over the
+mesh.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.training.tree import flatten, tree_map, unflatten
 
@@ -56,10 +60,32 @@ def init_adamw(params: Dict) -> Dict:
 
 
 def _global_norm(tree: Dict) -> torch.Tensor:
+    """The global L2 norm of the leaves. Over ``DTensor`` leaves each
+    leaf's sum of squares is a partial sum over the whole mesh, and the
+    sum of them all is reduced once, as one cross-shard reduction."""
     total = 0
     for leaf in flatten(tree).values():
-        total = total + torch.sum(torch.square(leaf.float()))
+        if isinstance(leaf, DTensor):
+            mesh = leaf.device_mesh
+            # this rank's share: its block's squares over the number of
+            # ranks that hold the same block
+            copies = math.prod(mesh.size(i) for i, p in
+                               enumerate(leaf.placements) if not p.is_shard())
+            sq = DTensor.from_local(
+                torch.sum(torch.square(leaf.to_local().float())) / copies,
+                mesh, [Partial()] * mesh.ndim, run_check=False)
+        else:
+            sq = torch.sum(torch.square(leaf.float()))
+        total = total + sq
     return torch.sqrt(total)
+
+
+def _like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient laid out as its parameter (its partial sums
+    reduced once, before every use); a plain one as it is."""
+    if isinstance(grad, DTensor):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
 
 
 @torch.no_grad()
@@ -68,6 +94,9 @@ def adamw_update(cfg: AdamWConfig, params: Dict, grads: Dict, state: Dict
     """One AdamW step. Returns ``(new_params, new_state, {'grad_norm',
     'lr'})``; the gradient's global norm is the one before the clip."""
     step = state["step"] + 1
+    flat_p = flatten(params)
+    grads = unflatten({k: _like(g, flat_p[k])
+                       for k, g in flatten(grads).items()})
     gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = cosine_lr(cfg, step)
@@ -80,7 +109,7 @@ def adamw_update(cfg: AdamWConfig, params: Dict, grads: Dict, state: Dict
     # the reference's expressions leaf by leaf, with at most two
     # leaf-sized temporaries alive at once (an embedding at full width is
     # gigabytes)
-    for k, p in flatten(params).items():
+    for k, p in flat_p.items():
         g = flat_g[k].float() * scale
         m2 = (cfg.b1 * flat_m[k]).add_((1 - cfg.b1) * g)
         t = (1 - cfg.b2) * g
