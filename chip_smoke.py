@@ -98,11 +98,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    memory, and fails unless its losses and grad norms are finite, its
    last loss is below its first and neither kernel of the repo launched;
 11. the dry-run (``repro_torch.launch.dryrun``): (11a) ``python -m
-   repro_torch.launch.sweep`` over the twelve archs x four input shapes x
-   both production meshes (16x16 and 2x16x16, counted in H100s) in a
-   subprocess on the host's CPU (the meta device), one line a cell
-   (argument GiB per card, t_compute and t_memory in ms, bottleneck,
-   useful-FLOPs ratio), all 96 ``ok``; (11b) llama3-8b on a one-card mesh
+   repro_torch.launch.sweep`` over one arch of each family (llama3-8b,
+   kimi-k2-1t-a32b, deepseek-v2-236b, mamba2-780m, hymba-1.5b,
+   whisper-base) x four input shapes x both production meshes (16x16
+   and 2x16x16, counted in H100s) in a subprocess on the host's CPU (the
+   meta device, a fake process group: each cell's step partitioned as
+   ``DTensor``s), one line a cell (argument and temporary GiB per card,
+   t_compute, t_memory and t_collective in ms, bottleneck, useful-FLOPs
+   ratio), all 48 ``ok``; (11b) llama3-8b on a one-card mesh
    (decode of 8 rows over 32768 positions, a prefill of 8192 tokens),
    weights drawn on the card from seed 0 in the specs' dtypes: the card's
    ``memory_allocated`` for the weights, zeroed cache and inputs within
@@ -126,7 +129,19 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    block forward and its all-reduce (device ms, median of 10 after a
    barrier) beside one process's block, peak memory per rank and in the
    parent, beside the card's name and power limit. Phase 12 launches
-   neither kernel of the repo.
+   neither kernel of the repo;
+13. the partitioned dry-run's count against a run: llama3-8b at full
+   width cut to 2 layers, bf16, seed 0, on four gloo ranks of the card as
+   a 2x2 (data, model) mesh laid out by the dry-run's own partition
+   specs: (13a) a prefill of tokens [4, 512] and one decode step, each
+   rank's logits against one process's by phase 8c's rule; (13b) each
+   rank's collectives, kind by kind and byte for byte, equal to the fake
+   mesh's count of the same steps, and likewise deepseek-v2-236b's MoE
+   block after its router (``moe.ep_moe``: the router's two statistics
+   and one all-reduce of the partial); (13c) the bytes each rank places
+   for its arguments within 1% of ``argument_bytes``, its peak beside
+   arguments + the predicted temporary bytes. Phase 13 launches neither
+   kernel of the repo.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches`` counts phases 3, 5 and 7's paged runs; ``qwen2_7b`` holds
@@ -1949,11 +1964,12 @@ def phase_train(torch):
 # ---------------------------------------------------------------------------
 
 # (11a) the partitioned grid, one arch of each family x the four input
-# shapes on the 16x16 mesh (the 96-cell grid of every arch and both
-# meshes takes minutes of host CPU: it runs off the card)
+# shapes x both production meshes (the 2x16x16 mesh runs over the merged
+# ("pod", "data") axis); the 96-cell grid of every arch takes minutes of
+# host CPU and runs off the card
 GRID_ARCHS = ("llama3-8b", "kimi-k2-1t-a32b", "deepseek-v2-236b",
               "mamba2-780m", "hymba-1.5b", "whisper-base")
-GRID_CELLS, GRID_TIMEOUT = 24, 600
+GRID_CELLS, GRID_TIMEOUT = 48, 600
 # (11b) llama3-8b on a one-card mesh, bf16 weights drawn on the card from
 # seed 0: decode of 8 rows over 32768 positions (16.1 GB of weights, 34.4
 # GB of KV) and one 8192-token prefill; the forward timed over
@@ -1969,12 +1985,12 @@ ALLOC_RTOL, ROOFLINE_FLOOR = 0.01, 0.9
 
 def _dryrun_grid(tag):
     """(11a) ``python -m repro_torch.launch.sweep`` over ``GRID_ARCHS`` x
-    four shapes on the 16x16 mesh in a subprocess (the meta device and a
-    fake process group: the host's CPU); every cell must be ``ok``."""
+    four shapes x both meshes in a subprocess (the meta device and a fake
+    process group: the host's CPU); every cell must be ``ok``."""
     out = ROOT / "build" / "phase11a"
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.sweep", "--archs",
-           ",".join(GRID_ARCHS), "--out", str(out)]
+           ",".join(GRID_ARCHS), "--both-meshes", "--out", str(out)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -1984,7 +2000,7 @@ def _dryrun_grid(tag):
     reports = json.loads(summary.read_text()) if summary.exists() else []
     shutil.rmtree(out, ignore_errors=True)
     log(f"{tag} python -m repro_torch.launch.sweep --archs "
-        f"{','.join(GRID_ARCHS)}: exit {run.returncode} in {secs:.1f} s on "
+        f"{','.join(GRID_ARCHS)} --both-meshes: exit {run.returncode} in {secs:.1f} s on "
         f"the host (meta device, fake process group); predictions in "
         f"H100 units, per card of the partitioned step")
     log(f"{tag} arch shape mesh: argument GiB/card, temp GiB/card, "
@@ -2490,7 +2506,7 @@ def phase_expert_parallel(torch):
     log(f"[phase 12c] block forward (device ms, median of {EP_CALLS} after "
         f"a barrier) per rank: "
         f"{[round(r['block_ms'], 3) for r in ranks]}; its all-reduce of "
-        f"the {mb:.1f} MB bf16 partial (summed in fp32 by gloo through the "
+        f"the {mb:.1f} MB bf16 partial (summed in bf16 by gloo through the "
         f"host) per rank: {[round(r['reduce_ms'], 3) for r in ranks]} ms; "
         f"one process, a block of {t_loc} tokens with every expert: "
         f"{one['block_ms']:.3f} ms")
@@ -2589,7 +2605,7 @@ def _p13_fake_counts(torch, cfg):
     from repro_torch.launch.specs import distribute
     from repro_torch.models import sharding
     from repro_torch.models.api import build_model
-    from repro_torch.models.moe import ep_dispatch
+    from repro_torch.models.moe import ep_moe
     _, specs, rules = _p13_specs(cfg)
     params, cache = specs.args[0], specs.args[1]
     model = build_model(cfg, params, device="meta")
@@ -2613,9 +2629,9 @@ def _p13_fake_counts(torch, cfg):
                     return model.forward(p, t, c, n)[0]
             temp = count_step(prefill, (dp, dc, dt[:, :P13_PREFILL],
                                         n_len(0)))["temp"]
-            ecfg, xt, gw, gi, w = _p13_ep_args(torch, mesh, "meta")
+            ecfg, xt, pr, gw, gi, w = _p13_ep_args(torch, mesh, "meta")
             with CollectiveCounter() as cc:
-                ep_dispatch(w, ecfg, xt, gw, gi)
+                ep_moe(w, ecfg, xt, pr, gw, gi)
             ep_ops = [list(op) for op in cc.ops]
         finally:
             sharding.set_rules(None)
@@ -2623,8 +2639,8 @@ def _p13_fake_counts(torch, cfg):
 
 
 def _p13_ep_args(torch, mesh, device):
-    """13b's dispatch inputs as DTensors on ``mesh``: tokens, gate
-    weights and expert ids split over data (random, seed P13_SEED, the
+    """13b's dispatch inputs as DTensors on ``mesh``: tokens, router
+    probabilities, gate weights and expert ids split over data (random, seed P13_SEED, the
     same on every rank), and each rank's block of one layer's routed
     experts (random, its own seed)."""
     from repro_torch.configs import get_config
@@ -2635,12 +2651,15 @@ def _p13_ep_args(torch, mesh, device):
     t = P13_EP_TOKENS
     if device == "meta":
         xt = torch.empty((t, d), dtype=torch.bfloat16, device="meta")
+        pr = torch.empty((t, e), dtype=torch.float32, device="meta")
         gw = torch.empty((t, k), dtype=torch.float32, device="meta")
         gi = torch.empty((t, k), dtype=torch.int64, device="meta")
     else:
         gen = torch.Generator(device=device).manual_seed(P13_SEED)
         xt = torch.randn((t, d), generator=gen, device=device).to(
             torch.bfloat16)
+        pr = torch.softmax(torch.randn((t, e), generator=gen,
+                                       device=device), dim=-1)
         gw = torch.rand((t, k), generator=gen, device=device)
         gi = torch.randint(0, e, (t, k), generator=gen, device=device)
     tok = P("data", None)
@@ -2662,8 +2681,8 @@ def _p13_ep_args(torch, mesh, device):
         w[name] = DTensor.from_local(
             local, mesh, mesh_placements(ex, mesh), run_check=False,
             shape=shape, stride=torch.empty(shape, device="meta").stride())
-    return (cfg, distribute(xt, tok, mesh), distribute(gw, tok, mesh),
-            distribute(gi, tok, mesh), w)
+    return (cfg, distribute(xt, tok, mesh), distribute(pr, tok, mesh),
+            distribute(gw, tok, mesh), distribute(gi, tok, mesh), w)
 
 
 def _p13_rank(rank, shared, outdir):
@@ -2697,7 +2716,7 @@ def _p13_readings(torch, rank, mesh, shared):
     from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.launch.specs import Specs, distribute
     from repro_torch.models import sharding
-    from repro_torch.models.moe import ep_dispatch
+    from repro_torch.models.moe import ep_moe
     from repro_torch.models.sharding import local_shard
     from repro_torch.models.transformer import DecoderModel, init_params
     cfg = dataclasses.replace(get_config(P13_ARCH), n_layers=P13_LAYERS)
@@ -2757,10 +2776,10 @@ def _p13_readings(torch, rank, mesh, shared):
                          placements=[str(p) for p in got.placements])
     del logits, cache, params
     _free(torch)
-    ecfg, xt, gw, gi, w = _p13_ep_args(torch, mesh, "cuda")
+    ecfg, xt, pr, gw, gi, w = _p13_ep_args(torch, mesh, "cuda")
     from repro_torch.launch.roofline import CollectiveCounter
     with CollectiveCounter() as cc:
-        out = ep_dispatch(w, ecfg, xt, gw, gi)
+        out = ep_moe(w, ecfg, xt, pr, gw, gi)[0]
     torch.cuda.synchronize()
     res["ep_ops"] = [list(op) for op in cc.ops]
     res["ep_finite"] = bool(torch.isfinite(out.to_local().float()).all())
@@ -2800,8 +2819,9 @@ def phase_partitioned(torch):
     card (a 2x2 data x model mesh over gloo), laid out by the dry-run's
     partition specs, against one process: a prefill of [4, 512] and a
     decode step; (13b) each rank's collectives against the fake mesh's
-    count of the same steps, and of deepseek-v2-236b's expert dispatch
-    (one all-reduce); (13c) the bytes each rank places for its arguments
+    count of the same steps, and of deepseek-v2-236b's MoE block after
+    its router (the router's two statistics and one all-reduce of the
+    partial); (13c) the bytes each rank places for its arguments
     against ``argument_bytes``, its peak against arguments + temp.
     Neither kernel of the repo runs here."""
     import torch.multiprocessing as mp

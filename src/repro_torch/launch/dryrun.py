@@ -34,7 +34,8 @@ from repro_torch.launch.roofline import (COLLECTIVE_KINDS, count_step,
                                          model_flops, roofline_report,
                                          tensor_bytes)
 from repro_torch.launch.specs import distribute, leaves, make_specs
-from repro_torch.models.sharding import P, set_rules, shard_count
+from repro_torch.models.sharding import (P, _axis_names, set_rules,
+                                         shard_count)
 
 COUNT_KEYS = ("flops", "bytes", "output", "temp", "coll_count") \
     + COLLECTIVE_KINDS
@@ -96,12 +97,6 @@ def partitioned(mesh, rules):
             set_rules(None)
 
 
-def _names(entry) -> tuple:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
-
-
 def merged_axes(mesh, pspecs, rules):
     """The same partition over fewer mesh axes: axes that no spec or rule
     names are dropped (every card holds the same there), and adjacent
@@ -111,8 +106,8 @@ def merged_axes(mesh, pspecs, rules):
     of ``mesh``; DTensor plans its collectives over a 3-D mesh of 512
     ranks far more slowly than over the 2-D one. Returns ``(mesh,
     pspecs, rules)`` over the merged axes."""
-    uses = {_names(e) for spec in leaves(pspecs).values() for e in spec}
-    uses |= {_names(v) for v in rules.values()}
+    uses = {_axis_names(e) for spec in leaves(pspecs).values() for e in spec}
+    uses |= {_axis_names(v) for v in rules.values()}
     uses.discard(())
     groups = [[a] for a in mesh.shape if any(a in u for u in uses)]
 
@@ -133,7 +128,7 @@ def merged_axes(mesh, pspecs, rules):
 
     def rename(entry):
         out = []
-        for a in _names(entry):
+        for a in _axis_names(entry):
             if not out or out[-1] != name[a]:
                 out.append(name[a])
         return out[0] if len(out) == 1 else (tuple(out) or None)

@@ -238,23 +238,20 @@ def make_specs(cfg: ModelConfig, shape: InputShape, mesh, *,
     return fn(cfg, shape, mesh, multi_pod=multi_pod)
 
 
-def distribute(args, pspecs, mesh, coordinate=None):
+def distribute(args, pspecs, mesh):
     """``args`` (a tree of whole tensors, meta or not) as ``DTensor``s on
     ``mesh`` (a ``DeviceMesh``), each leaf this rank's block under its
     spec in ``pspecs`` (:func:`~repro_torch.models.sharding.local_shard`)
     with the spec's placements (``mesh_placements``); a dimension the
-    spec's axes do not divide is left whole (``divisible_spec``). ``coordinate``:
-    the rank's coordinate on the mesh (default: this process's)."""
+    spec's axes do not divide is left whole (``divisible_spec``)."""
     if isinstance(args, dict):
-        return {k: distribute(v, pspecs[k], mesh, coordinate)
-                for k, v in args.items()}
+        return {k: distribute(v, pspecs[k], mesh) for k, v in args.items()}
     if isinstance(args, tuple):
-        return tuple(distribute(a, s, mesh, coordinate)
-                     for a, s in zip(args, pspecs))
+        return tuple(distribute(a, s, mesh) for a, s in zip(args, pspecs))
     from torch.distributed.tensor import DTensor
     spec = divisible_spec(pspecs, args.shape, mesh)
     return DTensor.from_local(
-        local_shard(args, spec, mesh, coordinate), mesh,
+        local_shard(args, spec, mesh), mesh,
         mesh_placements(spec, mesh), run_check=False, shape=args.shape,
         stride=args.stride())
 

@@ -103,6 +103,22 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
 
 
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``[..., heads, D]`` -> ``[..., heads * D]``. A ``DTensor`` is
+    reshaped on each card's block (``local_map``, a split of ``D`` first
+    gathered), so its gradient arrives laid out as the heads are: some
+    DTensor releases refuse to split a gradient sharded along the merged
+    dimension back into heads it does not divide."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*t.shape[:-2], -1)
+    mesh, last = t.device_mesh, t.dim() - 1
+    pl = [Replicate() if p.is_shard(last) else p for p in t.placements]
+    t = t.redistribute(mesh, pl)
+    return local_map(lambda x: x.reshape(*x.shape[:-2], -1),
+                     out_placements=pl, in_placements=(tuple(pl),),
+                     in_grad_placements=(tuple(pl),), device_mesh=mesh)(t)
+
+
 # ---------------------------------------------------------------------------
 # cache write
 # ---------------------------------------------------------------------------
@@ -495,7 +511,7 @@ def attention_block(p: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         ck, cv = _cache_rows(layer_cache, ("k", "v"), b, rows)
     blocked = sq * ck.shape[1] >= BLOCKED_ATTN_THRESHOLD and sq > 1
     out = attend(q, ck, cv, positions, kv_pos, window, hd ** -0.5, blocked)
-    out = linear(out.reshape(b, sq, h * hd), p["wo"])
+    out = linear(merge_heads(out), p["wo"])
     return out, layer_cache
 
 
@@ -601,7 +617,7 @@ def encoder_attention(p: Dict, cfg, x: torch.Tensor,
     q = position_encode(q, positions, cfg)
     k = position_encode(k, positions, cfg)
     out = attend(q, k, v, None, None, 0, hd ** -0.5)
-    return linear(out.reshape(b, s, h * hd), p["wo"])
+    return linear(merge_heads(out), p["wo"])
 
 
 def cross_attention(p: Dict, cfg, x: torch.Tensor, k_enc: torch.Tensor,
@@ -612,7 +628,7 @@ def cross_attention(p: Dict, cfg, x: torch.Tensor, k_enc: torch.Tensor,
     h, hd = cfg.n_heads, cfg.head_dim
     q = split_heads(linear(x, p["wq"]), h)
     out = attend(q, k_enc, v_enc, None, None, 0, hd ** -0.5)
-    return linear(out.reshape(b, sq, h * hd), p["wo"])
+    return linear(merge_heads(out), p["wo"])
 
 
 def cross_kv(p: Dict, cfg, enc_out: torch.Tensor

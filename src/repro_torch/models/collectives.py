@@ -24,11 +24,9 @@ the way back, which counts a replicated output once per rank.
 
 ``group=None`` stands for a group of this rank alone: every function is
 then the identity. The collectives run over gloo, on CPU tensors and on
-CUDA tensors (gloo stages them through the host). Half-precision floats
-(bf16, fp16) are reduced in fp32 and cast back: gloo's builds differ in
-which 16-bit types they reduce, and the fp32 sum of two bf16 values
-rounds to the bf16 sum; over more ranks it lies within one bf16 ulp of a
-sum rounded at every step.
+CUDA tensors (gloo stages them through the host), in the tensor's own
+dtype, as JAX's ``psum`` does: the bf16 sum of two bf16 values is their
+exact sum rounded once.
 """
 from __future__ import annotations
 
@@ -37,16 +35,8 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-_HALF = (torch.bfloat16, torch.float16)
-
-
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``, in a new tensor (16-bit floats
-    summed in fp32, see the module's docstring)."""
-    if x.dtype in _HALF:
-        buf = x.float()
-        dist.all_reduce(buf, group=group)
-        return buf.to(x.dtype)
+    """The sum of ``x`` over ``group``, in a new tensor."""
     buf = x.clone()
     dist.all_reduce(buf, group=group)
     return buf

@@ -29,23 +29,31 @@ def dense_init(shape: Sequence[int], *, generator: torch.Generator,
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of ``table``. A ``DTensor`` table split by vocabulary
-    is looked up in place: each rank takes the rows it holds (zeros for
-    the others) and the result is a partial sum over the vocabulary's
-    mesh dimensions, where indexing would gather the table."""
-    if not isinstance(table, DTensor) or not any(
-            p.is_shard(0) for p in table.placements):
+    """Rows ``ids`` of ``table``. A ``DTensor`` table is looked up on
+    each card's blocks (``local_map``): a table split by vocabulary gives
+    each rank the rows it holds (zeros for the others) and the result is
+    a partial sum over the vocabulary's mesh dimensions, where indexing
+    would gather the table; a whole table is indexed by each card's ids,
+    and its gradient is a partial sum over the dimensions that split
+    them."""
+    if not isinstance(table, DTensor):
         return table[ids.long()]
     mesh = table.device_mesh
-    v_dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    rep = Replicate()
+    tab_pl = [p if p.is_shard(0) else rep for p in table.placements]
+    table = table.redistribute(mesh, tab_pl)
+    v_dims = [i for i, p in enumerate(tab_pl) if p.is_shard(0)]
     if not isinstance(ids, DTensor):
-        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+        ids = DTensor.from_local(ids, mesh, [rep] * mesh.ndim,
                                  run_check=False)
-    ids = ids.redistribute(mesh, [Replicate() if i in v_dims else p
+    ids = ids.redistribute(mesh, [rep if i in v_dims or p.is_partial()
+                                  else p
                                   for i, p in enumerate(ids.placements)])
     rows = table.shape[0] // math.prod(mesh.size(i) for i in v_dims)
 
     def lookup(tab, idx):
+        if not v_dims:
+            return tab[idx.long()]
         block = 0
         for i in v_dims:
             block = block * mesh.size(i) + mesh.get_local_rank(i)
@@ -58,10 +66,9 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     # each rank's ids give part of the table's gradient
     tab_grad = [p if i in v_dims else
                 (Partial() if ids.placements[i].is_shard() else p)
-                for i, p in enumerate(table.placements)]
+                for i, p in enumerate(tab_pl)]
     return local_map(lookup, out_placements=out,
-                     in_placements=(tuple(table.placements),
-                                    tuple(ids.placements)),
+                     in_placements=(tuple(tab_pl), tuple(ids.placements)),
                      in_grad_placements=(tuple(tab_grad),
                                          tuple(ids.placements)),
                      device_mesh=mesh)(table, ids)

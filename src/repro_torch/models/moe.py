@@ -43,7 +43,11 @@ axis. Otherwise the blocks are gathered over the data axis and the
 global capacity rule runs on all the tokens, the GSPMD result. Either
 way the shared experts are added after the sum, on every rank, and
 ``aux`` is the global value (router means and expert counts summed over
-the data axis).
+the data axis). ``DTensor`` tokens (the partitioned dry-run, or a
+process mesh laid out by the dry-run's specs) run the same local-view
+body on each card's blocks through ``local_map`` (:func:`ep_moe`), over
+the process groups of the DTensors' mesh; on the ``meta`` device its
+kept rows are the capacity buffers.
 """
 from __future__ import annotations
 
@@ -58,8 +62,8 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.models.collectives import (block_sizes, copy_to_group,
                                             gather_blocks, reduce_from_group)
 from repro_torch.models.layers import mlp_shapes, swiglu
-from repro_torch.models.sharding import (axis_group, get_mesh, get_rules,
-                                         maybe_shard)
+from repro_torch.models.sharding import (_axis_names, axis_group, get_mesh,
+                                         get_rules, maybe_shard)
 
 # leaves of the routed experts: [E, d, f] / [E, f, d] per layer
 EXPERT_KEYS = frozenset(("w_gate", "w_up", "w_down"))
@@ -120,20 +124,15 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    xt = x.reshape(t, d)
+    xt = _tokens(x)
     probs, gate_w, gate_idx = route(p, cfg, xt)
     if isinstance(xt, DTensor):
-        out, aux = _moe_dtensor(p, cfg, xt, probs, gate_w, gate_idx, exact)
-        # back to [B, S, d]: rows split as the batch rows of ``x`` are
-        rows = [Shard(0) if pl == Shard(0) else Replicate()
-                for pl in x.placements]
-        return out.redistribute(out.device_mesh, rows).reshape(b, s, d), aux
-    if x.device.type == "meta":
+        out, aux = ep_moe(p, cfg, xt, probs, gate_w, gate_idx, exact)
+    elif x.device.type == "meta":
         out, aux = _capacity_block_meta(p, cfg, xt, probs, gate_w, gate_idx,
                                         capacity(t, cfg, exact))
         return out.reshape(b, s, d), aux
-
-    if get_mesh() is not None:
+    elif get_mesh() is not None:
         out, aux = _moe_on_mesh(p, cfg, xt, probs, gate_w, gate_idx, exact)
     else:
         # load-balance auxiliary loss (Switch-style)
@@ -145,7 +144,30 @@ def moe_block(p: Dict, cfg, x: torch.Tensor, exact: bool = False
     for i in range(cfg.n_shared_experts):
         sp = p[f"shared_{i}"]
         out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
+    if isinstance(out, DTensor):
+        # back to [B, S, d]: rows split as the batch rows of ``x`` are
+        out = out.redistribute(out.device_mesh, [
+            Shard(0) if pl == Shard(0) else Replicate()
+            for pl in x.placements])
     return out.reshape(b, s, d), aux
+
+
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, S, d]`` as ``[B * S, d]``. A ``DTensor`` whose batch rows
+    are whole or split is flattened on each card's block (``local_map``),
+    so its gradient arrives laid out as ``x`` is: the dispatch hands back
+    gradients split over all the tokens, which DTensor cannot unflatten
+    into batch rows the mesh does not divide."""
+    b, s, d = x.shape
+    if not isinstance(x, DTensor) or any(
+            p.is_partial() or p.is_shard() and p.dim != 0
+            for p in x.placements):
+        return x.reshape(b * s, d)
+    pl = list(x.placements)
+    return local_map(lambda a: a.reshape(-1, d), out_placements=pl,
+                     in_placements=(tuple(pl),),
+                     in_grad_placements=(tuple(pl),),
+                     device_mesh=x.device_mesh)(x)
 
 
 def _local_experts(p: Dict, cfg, xt: torch.Tensor, gate_w: torch.Tensor,
@@ -186,16 +208,50 @@ def _local_experts(p: Dict, cfg, xt: torch.Tensor, gate_w: torch.Tensor,
     return out
 
 
+def _ep_splits(cfg, t: int, n_b: int, m_ax, exact: bool) -> bool:
+    """Whether ``t`` tokens over ``n_b`` data blocks take the
+    expert-parallel dispatch (each block to its rank's experts at its own
+    capacity); otherwise GSPMD's global capacity rule runs on all the
+    tokens."""
+    return m_ax is not None and not exact and t % n_b == 0 and t >= n_b
+
+
+def _expert_axis(mesh, e: int):
+    """The rules' experts axis on ``mesh``, or ``None`` where it does not
+    divide the ``e`` experts (their leaves are then whole on every card,
+    as ``sharding.divisible_spec`` leaves them)."""
+    m_ax = (get_rules() or {}).get("experts")
+    return m_ax if m_ax is not None and e % mesh[m_ax].size() == 0 \
+        else None
+
+
+def _expert_counts(gate_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Pairs routed to each expert, ``[E]`` fp32 (exact below 2^24; a
+    scatter-add, which the ``meta`` device runs where ``bincount``
+    cannot)."""
+    flat = gate_idx.reshape(-1).long()
+    return torch.zeros(e, dtype=torch.float32, device=flat.device
+                       ).scatter_add_(0, flat, torch.ones(
+                           flat.shape, dtype=torch.float32,
+                           device=flat.device))
+
+
 def _moe_on_mesh(p: Dict, cfg, xt: torch.Tensor, probs: torch.Tensor,
-                 gate_w: torch.Tensor, gate_idx: torch.Tensor, exact: bool
+                 gate_w: torch.Tensor, gate_idx: torch.Tensor, exact: bool,
+                 mesh=None, sizes=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed half of the block on this rank's tokens ``xt [t_loc,
-    d]`` under the installed process mesh: (out ``[t_loc, d]`` in
-    ``xt``'s dtype, before the shared experts; the global aux)."""
-    mesh, rules = get_mesh(), get_rules() or {}
+    d]`` in local view, over ``mesh`` (default: the installed process
+    mesh): (out ``[t_loc, d]`` in ``xt``'s dtype, before the shared
+    experts; the global aux). ``sizes``: every data block's rows
+    (default: all-reduced from the ranks'; one block: every rank holds
+    all the tokens). On the ``meta`` device the
+    kept rows are the capacity buffers of :func:`_capacity_dispatch_meta`."""
+    mesh = get_mesh() if mesh is None else mesh
+    rules = get_rules() or {}
     e, k = cfg.n_experts, cfg.top_k
     data = axis_group(mesh, rules.get("batch"))
-    m_ax = rules.get("experts")
+    m_ax = _expert_axis(mesh, e)
     experts = axis_group(mesh, m_ax)
     n_m = 1 if m_ax is None else mesh[m_ax].size()
     e_loc = e // n_m
@@ -204,34 +260,81 @@ def _moe_on_mesh(p: Dict, cfg, xt: torch.Tensor, probs: torch.Tensor,
         raise ValueError(f"this rank holds {p['w_gate'].shape[0]} routed "
                          f"experts, the mesh gives it {e_loc} of {e}: cut "
                          f"the params with sharding.shard_experts")
-    sizes = block_sizes(xt.shape[0], data)
+    if sizes is None:
+        sizes = block_sizes(xt.shape[0], data)
+    elif len(sizes) == 1:
+        data = None     # every rank holds all the tokens
     t, n_b = sum(sizes), len(sizes)
 
     # the global load-balance loss: router means and expert counts
     # summed over the data axis (the counts carry no gradient)
     me = reduce_from_group(probs.sum(0), data) / t
-    counts = reduce_from_group(
-        torch.bincount(gate_idx.reshape(-1), minlength=e).float(), data)
+    counts = reduce_from_group(_expert_counts(gate_idx, e), data)
     aux = e * torch.sum(me * (counts / (t * k)))
+
+    def routed(xl, gw, gi, cap):
+        if xl.device.type == "meta":
+            return _capacity_dispatch_meta(xl, gw, gi, p["w_gate"],
+                                           p["w_up"], p["w_down"], cap)
+        return _local_experts(p, cfg, xl, gw, gi, e0, cap).to(xl.dtype)
 
     # the tokens of a data block are replicated over the expert axis:
     # their gradient (and the gate weights') sums over it
     xl, gw = copy_to_group(xt, experts), copy_to_group(gate_w, experts)
-    if m_ax is not None and not exact and t % n_b == 0 and t >= n_b:
+    if _ep_splits(cfg, t, n_b, m_ax, exact):
         if len(set(sizes)) != 1:
             raise ValueError(f"blocks of {sizes} rows: the expert-parallel "
                              f"dispatch takes the data axis's even blocks")
-        part = _local_experts(p, cfg, xl, gw, gate_idx, e0,
-                              capacity(sizes[0], cfg, False))
-        return reduce_from_group(part.to(xt.dtype), experts), aux
+        part = routed(xl, gw, gate_idx, capacity(sizes[0], cfg, False))
+        return reduce_from_group(part, experts), aux
     # GSPMD's dispatch: the global capacity rule over all t tokens
     start = sum(sizes[:0 if data is None else dist.get_rank(data)])
-    part = _local_experts(p, cfg, gather_blocks(xl, data, sizes),
-                          gather_blocks(gw, data, sizes),
-                          gather_blocks(gate_idx, data, sizes), e0,
-                          capacity(t, cfg, exact))
-    out = reduce_from_group(part.to(xt.dtype), experts)
+    part = routed(gather_blocks(xl, data, sizes),
+                  gather_blocks(gw, data, sizes),
+                  gather_blocks(gate_idx, data, sizes),
+                  capacity(t, cfg, exact))
+    out = reduce_from_group(part, experts)
     return out[start:start + xt.shape[0]], aux
+
+
+def ep_moe(p: Dict, cfg, xt, probs, gate_w, gate_idx, exact: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_on_mesh` on ``DTensor`` tokens ``xt [T, d]`` (with the
+    router's ``probs``, gate weights and expert ids): each card runs it
+    in local view on its blocks (``local_map``) over the process groups
+    of the DTensors' mesh, as JAX's ``shard_map`` body: its block of
+    tokens (split over the batch axis, whole over the expert axis) to its
+    own experts, the partial outputs summed over the expert axis by one
+    all-reduce. Returns ``(out [T, d]`` split as the dispatch splits the
+    tokens, before the shared experts; ``aux)``."""
+    mesh, rules = xt.device_mesh, get_rules() or {}
+    names = list(mesh.mesh_dim_names)
+    b_ax = _axis_names(rules.get("batch"))
+    m_ax = _expert_axis(mesh, cfg.n_experts)
+    rep = Replicate()
+    n_b = math.prod(mesh.size(i) for i, a in enumerate(names) if a in b_ax)
+    t = xt.shape[0]
+    # the dispatch's even blocks of tokens; else all of them on every card
+    split = _ep_splits(cfg, t, n_b, m_ax, exact)
+    tok = [Shard(0) if split and a in b_ax else rep for a in names]
+    sizes = [t // n_b] * n_b if split else [t]
+    # each data block's tokens give part of its experts' gradient
+    grad_w = [Partial() if split and a in b_ax else Shard(0) if a == m_ax
+              else rep for a in names]
+    exp = [Shard(0) if a == m_ax else rep for a in names]
+    keys = ("w_gate", "w_up", "w_down")
+
+    def body(xl, pl, gw, gi, *w):
+        return _moe_on_mesh(dict(zip(keys, w)), cfg, xl, pl, gw, gi, exact,
+                            mesh=mesh, sizes=sizes)
+    args = [xt.redistribute(mesh, tok), probs.redistribute(mesh, tok),
+            gate_w.redistribute(mesh, tok), gate_idx.redistribute(mesh, tok)
+            ] + [p[w].redistribute(mesh, exp) for w in keys]
+    return local_map(
+        body, out_placements=(tok, [rep] * mesh.ndim),
+        in_placements=(tuple(tok),) * 4 + (tuple(exp),) * 3,
+        in_grad_placements=(tuple(tok),) * 4 + (tuple(grad_w),) * 3,
+        device_mesh=mesh)(*args)
 
 
 def _capacity_block_meta(p: Dict, cfg, xt: torch.Tensor,
@@ -276,92 +379,6 @@ def _capacity_dispatch_meta(xt, gate_w, gate_idx, w_gate, w_up, w_down,
     out = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
     out.index_add_(0, tok, contrib)
     return out
-
-
-def _moe_dtensor(p: Dict, cfg, xt, probs, gate_w, gate_idx, exact: bool):
-    """The MoE block after the router on ``DTensor`` tokens ``xt [T, d]``
-    (a mesh with ``sharding.set_rules`` installed): the load-balance loss
-    from each rank's expert counts (a partial sum over the batch axes),
-    the routed experts (:func:`ep_dispatch`), then the shared experts."""
-    mesh, rules = xt.device_mesh, get_rules() or {}
-    e, k = cfg.n_experts, cfg.top_k
-    b_dims = _dims(mesh, rules.get("batch"))
-
-    def counts(gi):
-        return torch.zeros(e, dtype=torch.float32, device=gi.device
-                           ).scatter_add_(0, gi.reshape(-1),
-                                          torch.ones(gi.numel(),
-                                                     device=gi.device))
-    part = [Partial() if i in b_dims and gate_idx.placements[i].is_shard()
-            else Replicate() for i in range(mesh.ndim)]
-    ce = local_map(counts, out_placements=part, device_mesh=mesh)(
-        gate_idx) / (xt.shape[0] * k)
-    aux = e * torch.sum(probs.mean(0) * ce)
-    out = ep_dispatch(p, cfg, xt, gate_w, gate_idx, exact)
-    for i in range(cfg.n_shared_experts):
-        sp = p[f"shared_{i}"]
-        out = out + swiglu(xt, sp["w_gate"], sp["w_up"], sp["w_down"])
-    return out, aux
-
-
-def ep_dispatch(p: Dict, cfg, xt, gate_w, gate_idx, exact: bool = False):
-    """The routed experts on ``DTensor`` tokens ``xt [T, d]`` with their
-    gate weights and expert ids ``[T, k]``, as JAX's ``shard_map`` body:
-    each card routes its block of tokens (split over the batch axes,
-    whole over the expert axis) to the experts it holds (``local_map``:
-    the capacity buffers on ``meta``, each expert's kept rows otherwise)
-    and the partial outputs are summed over the expert axis by one
-    all-reduce. Outside that dispatch's conditions (an ``experts`` rule,
-    not ``exact``, tokens that split evenly over the batch axes) every
-    card takes all the tokens and the global capacity rule. Returns
-    ``[T, d]`` laid out as ``xt``."""
-    mesh, rules = xt.device_mesh, get_rules() or {}
-    e, t = cfg.n_experts, xt.shape[0]
-    b_dims = _dims(mesh, rules.get("batch"))
-    m_dims = _dims(mesh, rules.get("experts"))
-    m_dim = m_dims[0] if m_dims else None
-    n_b = math.prod(mesh.size(i) for i in b_dims)
-    split = m_dim is not None and not exact and t % n_b == 0 and t >= n_b
-    tok_pl = [Shard(0) if split and i in b_dims else Replicate()
-              for i in range(mesh.ndim)]
-    exp_pl = [Shard(0) if i == m_dim else Replicate()
-              for i in range(mesh.ndim)]
-    cap = capacity(t // n_b if split else t, cfg, exact)
-    e_loc = e // (mesh.size(m_dim) if m_dim is not None else 1)
-
-    def dispatch(xl, gw, gi, wg, wu, wd):
-        if xl.device.type == "meta":
-            return _capacity_dispatch_meta(xl, gw, gi, wg, wu, wd, cap)
-        e0 = 0 if m_dim is None else mesh.get_local_rank(m_dim) * e_loc
-        return _local_experts({"w_gate": wg, "w_up": wu, "w_down": wd},
-                              cfg, xl, gw, gi, e0, cap).to(xl.dtype)
-
-    args = [xt.redistribute(mesh, tok_pl),
-            gate_w.to(xt.dtype).redistribute(mesh, tok_pl),
-            gate_idx.redistribute(mesh, tok_pl)] + [
-        p[w].redistribute(mesh, exp_pl)
-        for w in ("w_gate", "w_up", "w_down")]
-    # the tokens are whole over the expert axis: each card's experts give
-    # part of their gradient, and the outputs are partial sums there
-    on_m = [Partial() if i == m_dim else pl for i, pl in enumerate(tok_pl)]
-    out = local_map(
-        dispatch, out_placements=on_m,
-        in_placements=tuple(tuple(a.placements) for a in args),
-        in_grad_placements=(tuple(on_m), tuple(on_m), tuple(tok_pl))
-        + (tuple(exp_pl),) * 3, device_mesh=mesh)(*args)
-    return out.redistribute(mesh, tok_pl).redistribute(mesh, xt.placements)
-
-
-def _dims(mesh, entry) -> list:
-    """The indices of the mesh dimensions a rule's value names."""
-    names = list(mesh.mesh_dim_names)
-    return [names.index(a) for a in _names(entry)]
-
-
-def _names(entry) -> tuple:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
 def dense_expert_outputs(p: Dict, cfg, xt: torch.Tensor

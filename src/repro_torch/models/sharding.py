@@ -116,16 +116,14 @@ def mesh_placements(spec: P, mesh) -> List:
     return out
 
 
-def local_shard(t: torch.Tensor, spec: P, mesh,
-                coordinate: Optional[List[int]] = None) -> torch.Tensor:
-    """The block of ``t`` that the rank at ``coordinate`` on ``mesh``
-    holds under ``spec`` (default: this rank's coordinate), a new
-    contiguous tensor. A dimension split over several axes is cut in
+def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The block of ``t`` that this rank holds on ``mesh`` under
+    ``spec``, a new contiguous tensor. A dimension split over several axes is cut in
     their mixed-radix order, major axis first; every split must be
     even."""
     names = list(mesh.mesh_dim_names)
     sizes = _sizes(mesh)
-    coord = mesh.get_coordinate() if coordinate is None else coordinate
+    coord = mesh.get_coordinate()
     out = t
     for dim, entry in enumerate(spec):
         axes = _axis_names(entry)

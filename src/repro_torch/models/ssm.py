@@ -30,6 +30,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.models.sharding import _axis_names, get_rules
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int, int, int]:
@@ -190,10 +191,16 @@ def _causal_conv(xbc: torch.Tensor, conv_cache: torch.Tensor,
     return out, new_cache.to(conv_cache.dtype)
 
 
-def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask):
+def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask,
+              heads: Optional[Tuple[int, int]] = None, norm_sum=None):
     """The block between its two products: the causal conv, the SSD scan
     (or the recurrent step) and the gated norm, on ``zxbcdt [B, S,
-    in_proj]``; returns ``(y [B, S, d_inner], h_final, new conv)``."""
+    in_proj]``; returns ``(y [B, S, d_inner], h_final, new conv)``.
+
+    ``heads = (lo, hi)``: run only heads ``[lo, hi)`` (``h0`` holds just
+    those; ``y`` is their ``(hi - lo) * P`` channels), the gated norm's
+    sum of squares over all ``d_inner`` channels taken by ``norm_sum``
+    (the sum over the cards that hold the other heads)."""
     d_inner, h, hp, n, _ = ssm_dims(cfg)
     z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
     xbc, new_conv = _causal_conv(xbc, conv, p["conv_w"], p["conv_b"],
@@ -201,10 +208,19 @@ def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask):
     x_ssm = xbc[..., :d_inner]
     b_in = xbc[..., d_inner:d_inner + n]
     c_in = xbc[..., d_inner + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # [B,S,H]
+    dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D"]
+    norm_w = p["gate_norm"]
+    if heads is not None:
+        lo, hi = heads
+        ch = slice(lo * hp, hi * hp)
+        x_ssm, z, norm_w = x_ssm[..., ch], z[..., ch], norm_w[ch]
+        dt_raw = dt_raw[..., lo:hi]
+        dt_bias, a_log, d_skip = dt_bias[lo:hi], a_log[lo:hi], d_skip[lo:hi]
+        h = hi - lo
+    dt = F.softplus(dt_raw.float() + dt_bias.float())       # [B,S,H]
     if token_mask is not None:
         dt = torch.where(token_mask[..., None], dt, 0.0)
-    a_neg = -torch.exp(p["A_log"].float())                   # [H]
+    a_neg = -torch.exp(a_log.float())                        # [H]
 
     bsz, s, _ = zxbcdt.shape
     xh = x_ssm.reshape(bsz, s, h, hp)
@@ -216,47 +232,95 @@ def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask):
         y, h_final = ssd_chunked(xh, dt, a_neg, b_in, c_in, h0,
                                  cfg.ssm_chunk)
     y = y + xh.float().to(y.dtype) \
-        * p["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, d_inner)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y, h_final, new_conv
+        * d_skip.to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, h * hp) * F.silu(z)
+    if norm_sum is None:
+        return rmsnorm(y, norm_w, cfg.norm_eps), h_final, new_conv
+    # rmsnorm over every card's channels: the mean square all-reduced
+    g = y.float()
+    var = norm_sum((g * g).sum(dim=-1, keepdim=True)) / d_inner
+    g = g * torch.rsqrt(var + cfg.norm_eps)
+    return (g * (1.0 + norm_w.float())).to(y.dtype), h_final, new_conv
 
 
 def _ssm_core_partitioned(p: Dict, cfg, zxbcdt, h0, conv, decode: bool,
                           token_mask):
-    """:func:`_ssm_core` on ``DTensor``s as each card's own batch rows
-    (``local_map``), every other dimension whole: the projection's parts
-    (z, x, B, C, dt) are cut across the model axis's blocks, so each card
-    of that axis takes them whole and runs every head of its rows. The
-    state comes back laid out as it was given."""
+    """:func:`_ssm_core` on ``DTensor``s, on each card's blocks
+    (``local_map``): its batch rows and, where the heads rule's mesh
+    dimension divides the heads, its heads, as GSPMD keeps them. The
+    projection's parts (z, x, B, C, dt) are cut across the model axis's
+    blocks, so each card takes them whole and keeps its heads' channels
+    (and B and C, which every head reads); the recurrent state stays
+    split by heads; the gated norm's sum of squares is all-reduced over
+    the heads' dimension, and ``y`` comes out split there, as the
+    row-parallel ``out_proj`` takes it. The state comes back laid out as
+    it was given."""
     mesh = zxbcdt.device_mesh
+    _, n_heads, _, _, _ = ssm_dims(cfg)
     rows = [Shard(0) if pl == Shard(0) else Replicate()
             for pl in zxbcdt.placements]
+    names = list(mesh.mesh_dim_names)
+    h_dims = [i for i in (names.index(a) for a in _axis_names(
+        (get_rules() or {}).get("heads")))
+        if rows[i] == Replicate() and mesh.size(i) > 1]
+    if len(h_dims) != 1 or n_heads % mesh.size(h_dims[0]):
+        h_dims = []
+    heads = [Shard(1) if i in h_dims else pl for i, pl in enumerate(rows)]
+    chans = [Shard(2) if i in h_dims else pl for i, pl in enumerate(rows)]
     whole = [Replicate()] * mesh.ndim
     h0, conv = _as_dtensor(h0, mesh), _as_dtensor(conv, mesh)
-    args = [zxbcdt.redistribute(mesh, rows), h0.redistribute(mesh, rows),
+    args = [zxbcdt.redistribute(mesh, rows), h0.redistribute(mesh, heads),
             conv.redistribute(mesh, rows)]
-    places = [rows, rows, rows]
+    places = [rows, heads, rows]
     if token_mask is not None:
         token_mask = _as_dtensor(token_mask, mesh).redistribute(mesh, rows)
     weights = {k: _as_dtensor(v, mesh).redistribute(mesh, whole)
                for k, v in p.items()}
-    # each card's rows give part of the weights' gradient
-    w_grad = [Partial() if pl.is_shard() else Replicate() for pl in rows]
+    # each card's rows and heads give part of the weights' gradient, and
+    # of the projection's and the conv state's (B and C feed every head)
+    part = [Partial() if pl.is_shard() or i in h_dims else Replicate()
+            for i, pl in enumerate(rows)]
+    mixed = [Partial() if i in h_dims else pl for i, pl in enumerate(rows)]
 
     def core(zx, h, c, mask, *w):
-        return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode, mask)
+        if not h_dims:
+            return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode,
+                             mask)
+        n_loc = h.shape[1]
+        lo = mesh.get_local_rank(h_dims[0]) * n_loc
+        return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode, mask,
+                         heads=(lo, lo + n_loc),
+                         norm_sum=lambda t: _SumOver.apply(t, mesh,
+                                                           h_dims[0]))
     y, h_new, c_new = local_map(
-        core, out_placements=(rows, rows, rows),
+        core, out_placements=(chans, heads, rows),
         in_placements=tuple(map(tuple, places)) + (
             None if token_mask is None else tuple(rows),)
         + (tuple(whole),) * len(weights),
-        in_grad_placements=tuple(map(tuple, places)) + (
+        in_grad_placements=(tuple(mixed), tuple(heads), tuple(mixed)) + (
             None if token_mask is None else tuple(rows),)
-        + (tuple(w_grad),) * len(weights),
+        + (tuple(part),) * len(weights),
         device_mesh=mesh)(*args, token_mask, *weights.values())
     return (y, h_new.redistribute(mesh, h0.placements),
             c_new.redistribute(mesh, conv.placements))
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over one mesh dimension's ranks, each rank's gradient the
+    sum of theirs (every rank's output feeds its own part of the
+    loss)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.group = (mesh, dim)
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", ctx.group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(
+            grad.contiguous(), "sum", ctx.group)), None, None
 
 
 def _as_dtensor(t: torch.Tensor, mesh) -> torch.Tensor:

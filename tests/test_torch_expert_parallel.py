@@ -30,7 +30,7 @@ Both run at once, once per module. Cases:
     experts), and the block's input gradients each rank's rows of it;
 (e) a 1x1 mesh (world size 1) gives what no mesh gives, bit for bit;
     ``exact`` mode under the 2x2 mesh gives the dense oracle's output;
-(f) the fallback in bf16 (16-bit floats are reduced in fp32) against
+(f) the fallback in bf16 (the partials summed in bf16, as JAX's psum) against
     the port's one process.
 
 JAX's ``jax.grad`` through its ``shard_map`` dispatch is wrong for the
