@@ -130,13 +130,15 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
    barrier) beside one process's block, peak memory per rank and in the
    parent, beside the card's name and power limit. Phase 12 launches
    neither kernel of the repo;
-13. the partitioned dry-run's count against a run: llama3-8b at full
-   width cut to 2 layers, bf16, seed 0, on four gloo ranks of the card as
-   a 2x2 (data, model) mesh laid out by the dry-run's own partition
-   specs: (13a) a prefill of tokens [4, 512] and one decode step, each
-   rank's logits against one process's by phase 8c's rule; (13b) each
-   rank's collectives, kind by kind and byte for byte, equal to the fake
-   mesh's count of the same steps, and likewise deepseek-v2-236b's MoE
+13. the partitioned dry-run's count against a run: llama3-8b and
+   mamba2-780m at full width cut to 2 layers, bf16, seed 0, on four gloo
+   ranks of the card as a 2x2 (data, model) mesh laid out by the
+   dry-run's own partition specs: (13a) a prefill of tokens [4, 512] and
+   one decode step, each rank's logits against one process's by phase
+   8c's rule; (13b) each rank's collectives, kind by kind and byte for
+   byte, equal to the fake mesh's count of the same steps as that rank
+   (mamba2's SSM core split by heads moves each rank the columns it
+   lacks by all-to-all), and likewise deepseek-v2-236b's MoE
    block after its router (``moe.ep_moe``: the router's two statistics
    and one all-reduce of the partial); (13c) the bytes each rank places
    for its arguments within 1% of ``argument_bytes``, its peak beside
@@ -2543,10 +2545,11 @@ DEVICE_KERNELS = {
 # phase 13: the partitioned dry-run's count held against a run on the card
 # ---------------------------------------------------------------------------
 
-# llama3-8b at full width cut to 2 layers, bf16, on four ranks of one
-# card as a 2x2 (data, model) mesh over gloo, laid out by the dry-run's
-# own partition specs: a prefill of tokens [4, 512], then one decode step
-P13_ARCH, P13_LAYERS = "llama3-8b", 2
+# llama3-8b and mamba2-780m at full width cut to 2 layers, bf16, on four
+# ranks of one card as a 2x2 (data, model) mesh over gloo, laid out by the
+# dry-run's own partition specs: a prefill of tokens [4, 512], then one
+# decode step (mamba2's SSM core split by heads: its column exchange)
+P13_ARCHS, P13_LAYERS = ("llama3-8b", "mamba2-780m"), 2
 P13_BATCH, P13_PREFILL, P13_SEED = 4, 512, 13
 # 13b's MoE dispatch: deepseek-v2-236b's routed experts (phase 12's
 # model), 2048 tokens (1024 a data block) with random routing
@@ -2563,6 +2566,11 @@ P13_GLOO_CUDA = ("all-reduce", "reduce-scatter", "all-to-all")
 P13_RTOL, P13_FLOOR = 2.0 ** -6, 2.0 ** -12
 # 13c: the bytes a rank places for its arguments against the prediction
 P13_ARG_TOL = 0.01
+
+
+def _p13_cfg(arch):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=P13_LAYERS)
 
 
 def _p13_specs(cfg):
@@ -2595,23 +2603,31 @@ def _p13_steps(torch, model, params, cache, tokens, n_len):
     return out, ops
 
 
-def _p13_fake_counts(torch, cfg):
-    """The fake mesh's count of the same two steps (meta tensors of the
-    same shapes, the same mesh and rules), and of the MoE dispatch."""
+def _p13_fake_counts(torch, cfg, rank):
+    """The fake mesh's count, as ``rank``, of the same two steps (meta
+    tensors of the same shapes and dtypes, the same mesh and rules: the
+    SSM core's column exchange moves a different number of columns to
+    each rank), and at rank 0 the prefill's temp (else ``None``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.mesh import fake_mesh
-    from repro_torch.launch.roofline import CollectiveCounter, count_step
+    from repro_torch.launch.roofline import count_step
     from repro_torch.launch.specs import distribute
     from repro_torch.models import sharding
     from repro_torch.models.api import build_model
-    from repro_torch.models.moe import ep_moe
+    from repro_torch.models.transformer import FP32_KEYS
     _, specs, rules = _p13_specs(cfg)
-    params, cache = specs.args[0], specs.args[1]
+    cache = specs.args[1]
+
+    def stored(tree):           # the specs' leaves as the model stores them
+        return {k: stored(v) if isinstance(v, dict) else
+                v.float() if k in FP32_KEYS else v for k, v in tree.items()}
+    params = stored(specs.args[0])
     model = build_model(cfg, params, device="meta")
     tokens = torch.empty((P13_BATCH, P13_PREFILL + 1), dtype=torch.int32,
                          device="meta")
-    with fake_mesh(EP_MESH, EP_AXES, device_type="cuda") as mesh:
+    with fake_mesh(EP_MESH, EP_AXES, device_type="cuda",
+                   rank=rank) as mesh:
         sharding.set_rules(rules, mesh)
         try:
             dp = distribute(params, specs.pspecs[0], mesh)
@@ -2623,19 +2639,39 @@ def _p13_fake_counts(torch, cfg):
                                               device="meta"),
                                   sharding.P(None), mesh)
             _, ops = _p13_steps(torch, model, dp, dc, dt, n_len)
+            if rank:
+                return ops, None
 
             def prefill(p, c, t, n):
                 with torch.no_grad(), implicit_replication():
                     return model.forward(p, t, c, n)[0]
-            temp = count_step(prefill, (dp, dc, dt[:, :P13_PREFILL],
-                                        n_len(0)))["temp"]
+            return ops, count_step(prefill, (dp, dc, dt[:, :P13_PREFILL],
+                                             n_len(0)))["temp"]
+        finally:
+            sharding.set_rules(None)
+
+
+def _p13_fake_ep(torch):
+    """The fake mesh's count of the MoE dispatch (13b)."""
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.models import sharding
+    from repro_torch.models.moe import ep_moe
+    with fake_mesh(EP_MESH, EP_AXES, device_type="cuda") as mesh:
+        sharding.set_rules(_p13_ep_rules(), mesh)
+        try:
             ecfg, xt, pr, gw, gi, w = _p13_ep_args(torch, mesh, "meta")
             with CollectiveCounter() as cc:
                 ep_moe(w, ecfg, xt, pr, gw, gi)
-            ep_ops = [list(op) for op in cc.ops]
         finally:
             sharding.set_rules(None)
-    return ops, ep_ops, temp
+    return [list(op) for op in cc.ops]
+
+
+def _p13_ep_rules():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import sharding_rules
+    return sharding_rules(False, get_config(P13_EP_ARCH))
 
 
 def _p13_ep_args(torch, mesh, device):
@@ -2707,20 +2743,41 @@ def _p13_rank(rank, shared, outdir):
 
 
 def _p13_readings(torch, rank, mesh, shared):
-    """13a-c on one rank: the weights drawn from seed 0 in turn and cut
-    to this rank's blocks by the specs, the two steps, their logits
-    against one process's, the collectives, the bytes placed."""
+    """13a-c on one rank for each arch, then 13b's MoE dispatch."""
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.models import sharding
+    from repro_torch.models.moe import ep_moe
+    res = {"rank": rank, "coord": mesh.get_coordinate()}
+    for arch in P13_ARCHS:
+        res[arch] = _p13_arch_readings(torch, arch, mesh, shared)
+    sharding.set_rules(_p13_ep_rules(), mesh)
+    try:
+        ecfg, xt, pr, gw, gi, w = _p13_ep_args(torch, mesh, "cuda")
+        with CollectiveCounter() as cc:
+            out = ep_moe(w, ecfg, xt, pr, gw, gi)[0]
+        torch.cuda.synchronize()
+    finally:
+        sharding.set_rules(None)
+    res["ep_ops"] = [list(op) for op in cc.ops]
+    res["ep_finite"] = bool(torch.isfinite(out.to_local().float()).all())
+    return res
+
+
+def _p13_arch_readings(torch, arch, mesh, shared):
+    """13a-c of one arch on one rank: the weights drawn from seed 0 in
+    turn and cut to this rank's blocks by the specs, the two steps, their
+    logits against one process's, the collectives, the bytes placed."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
-    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import argument_bytes
     from repro_torch.launch.specs import Specs, distribute
     from repro_torch.models import sharding
-    from repro_torch.models.moe import ep_moe
     from repro_torch.models.sharding import local_shard
     from repro_torch.models.transformer import DecoderModel, init_params
-    cfg = dataclasses.replace(get_config(P13_ARCH), n_layers=P13_LAYERS)
+    cfg = _p13_cfg(arch)
     lmesh, specs, rules = _p13_specs(cfg)
+    rank = dist.get_rank()
+    _free(torch)
     base = torch.cuda.memory_allocated()
     for turn in range(math.prod(EP_MESH)):
         if turn == rank:
@@ -2733,14 +2790,14 @@ def _p13_readings(torch, rank, mesh, shared):
     model = DecoderModel(cfg, specs.args[0], device="meta")
     cache = distribute(_zero_cache(torch, specs.args[1]), specs.pspecs[1],
                        mesh)
-    tokens = distribute(shared["tokens"], specs.pspecs[2], mesh)
+    tokens = distribute(shared[arch + "/tokens"], specs.pspecs[2], mesh)
     placed = torch.cuda.memory_allocated() - base
     sharded = [t for t in _leaves(params) if any(
         p.is_shard() for p in t.placements)]
     if not sharded or any(t.to_local().numel() * 4 != t.numel()
                           and t.to_local().numel() * 2 != t.numel()
                           for t in sharded):
-        raise RuntimeError("a sharded leaf is whole on this rank")
+        raise RuntimeError(f"{arch}: a sharded leaf is whole on this rank")
     arg_meta = Specs(args=(specs.args[0], specs.args[1],
                            torch.empty(tuple(tokens.shape),
                                        dtype=torch.int32, device="meta")),
@@ -2754,19 +2811,22 @@ def _p13_readings(torch, rank, mesh, shared):
             sharding.mesh_placements(sharding.P(None), mesh),
             run_check=False)
     sharding.set_rules(rules, mesh)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, ops = _p13_steps(torch, model, params, cache, tokens, n_len)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, ops = _p13_steps(torch, model, params, cache, tokens, n_len)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        sharding.set_rules(None)
     peak = torch.cuda.max_memory_allocated() - base
-    res = dict(rank=rank, coord=mesh.get_coordinate(), placed=placed,
-               predicted=predicted, peak=peak, step_s=step_s, ops=ops)
+    res = dict(placed=placed, predicted=predicted, peak=peak, step_s=step_s,
+               ops=ops)
     for name, got in (("prefill", logits[0]), ("decode", logits[1])):
         spec = _spec_of(got)
-        w = local_shard(shared[name], spec, mesh).float()
-        tol = local_shard(shared[name + "_tol"], spec, mesh)
+        w = local_shard(shared[f"{arch}/{name}"], spec, mesh).float()
+        tol = local_shard(shared[f"{arch}/{name}_tol"], spec, mesh)
         loc = got.to_local().float()
         err = (loc - w).abs()
         res[name] = dict(shape=list(loc.shape),
@@ -2776,13 +2836,6 @@ def _p13_readings(torch, rank, mesh, shared):
                          placements=[str(p) for p in got.placements])
     del logits, cache, params
     _free(torch)
-    ecfg, xt, pr, gw, gi, w = _p13_ep_args(torch, mesh, "cuda")
-    from repro_torch.launch.roofline import CollectiveCounter
-    with CollectiveCounter() as cc:
-        out = ep_moe(w, ecfg, xt, pr, gw, gi)[0]
-    torch.cuda.synchronize()
-    res["ep_ops"] = [list(op) for op in cc.ops]
-    res["ep_finite"] = bool(torch.isfinite(out.to_local().float()).all())
     return res
 
 
@@ -2814,43 +2867,22 @@ def _zero_cache(torch, tree):
             for k, v in tree.items()}
 
 
-def phase_partitioned(torch):
-    """(13a) llama3-8b at full width cut to 2 layers on four ranks of the
-    card (a 2x2 data x model mesh over gloo), laid out by the dry-run's
-    partition specs, against one process: a prefill of [4, 512] and a
-    decode step; (13b) each rank's collectives against the fake mesh's
-    count of the same steps, and of deepseek-v2-236b's MoE block after
-    its router (the router's two statistics and one all-reduce of the
-    partial); (13c) the bytes each rank places for its arguments
-    against ``argument_bytes``, its peak against arguments + temp.
-    Neither kernel of the repo runs here."""
-    import torch.multiprocessing as mp
-
-    from repro_torch.configs import get_config
+def _p13_oracle(torch, arch, shared):
+    """One process's logits of the two steps of ``arch`` (2 layers, seed
+    0) and their tolerances by phase 8c's rule, into ``shared``."""
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import DecoderModel
-    full = get_config(P13_ARCH)
-    cfg = dataclasses.replace(full, n_layers=P13_LAYERS)
-    ops_want, ep_want, temp = _p13_fake_counts(torch, cfg)
-    kinds = {k for step in ops_want for k, _ in step} \
-        | {k for k, _ in ep_want}
-    missing = sorted(kinds - set(P13_GLOO_CUDA))
-    log(f"[phase 13] {_describe(cfg, full)}; mesh {EP_MESH} {EP_AXES}; "
-        f"the fake mesh counts prefill {ops_want[0]}, decode "
-        f"{ops_want[1]}, MoE dispatch {ep_want}; temp "
-        f"{temp / 2**20:.1f} MiB/rank")
-    if missing:
-        _fail(f"[phase 13] the step issues {missing}, which gloo does not "
-              f"carry on CUDA tensors")
+    cfg = _p13_cfg(arch)
     rng = np.random.default_rng(P13_SEED)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (P13_BATCH, P13_PREFILL + 1),
         dtype=np.int32)).cuda()
-    from repro_torch.models import transformer
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = DecoderModel(cfg, device="cuda", generator=gen)
     cache = model.init_cache(P13_BATCH, P13_PREFILL + 1)
-    head = model.params["head"].float().abs()
-    shared = {"tokens": tokens}
+    head = (model.params["embed"].T if cfg.tie_embeddings
+            else model.params["head"]).float().abs()
+    shared[arch + "/tokens"] = tokens
     normed = []
     norm = transformer.rmsnorm
 
@@ -2867,56 +2899,102 @@ def phase_partitioned(torch):
                     ("decode", slice(P13_PREFILL, None), P13_PREFILL,
                      True)):
                 normed.clear()
-                shared[name] = model.forward(model.params, tokens[:, s],
-                                             cache, zero + n,
-                                             decode=dec)[0]
+                key = f"{arch}/{name}"
+                shared[key] = model.forward(model.params, tokens[:, s],
+                                            cache, zero + n,
+                                            decode=dec)[0]
                 terms = normed[-1].float().abs() @ head
-                shared[name + "_tol"] = P13_RTOL * (
-                    terms + shared[name].float().abs()) + P13_FLOOR
+                shared[key + "_tol"] = P13_RTOL * (
+                    terms + shared[key].float().abs()) + P13_FLOOR
                 del terms
     finally:
         transformer.rmsnorm = norm
     del model, cache, head, normed
     _free(torch)
+
+
+def phase_partitioned(torch):
+    """(13a) llama3-8b and mamba2-780m at full width cut to 2 layers on
+    four ranks of the card (a 2x2 data x model mesh over gloo), laid out
+    by the dry-run's partition specs, against one process: a prefill of
+    [4, 512] and a decode step; (13b) each rank's collectives against the
+    fake mesh's count of the same steps as that rank (mamba2's SSM core
+    moves each rank its own columns by all-to-all), and of
+    deepseek-v2-236b's MoE block after its router (the router's two
+    statistics and one all-reduce of the partial); (13c) the bytes each
+    rank places for its arguments against ``argument_bytes``, its peak
+    against arguments + temp. Neither kernel of the repo runs here."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    n_ranks = math.prod(EP_MESH)
+    want, temp = {}, {}
+    for arch in P13_ARCHS:
+        cfg = _p13_cfg(arch)
+        counts = [_p13_fake_counts(torch, cfg, r) for r in range(n_ranks)]
+        want[arch] = [ops for ops, _ in counts]
+        temp[arch] = counts[0][1]
+        log(f"[phase 13] {arch}: {_describe(cfg, get_config(arch))}; mesh "
+            f"{EP_MESH} {EP_AXES}; the fake mesh counts, rank by rank, "
+            f"prefill {[w[0] for w in want[arch]]}, decode "
+            f"{[w[1] for w in want[arch]]}; temp "
+            f"{temp[arch] / 2**20:.1f} MiB at rank 0")
+    ep_want = _p13_fake_ep(torch)
+    log(f"[phase 13] MoE dispatch: the fake mesh counts {ep_want}")
+    kinds = {k for arch in P13_ARCHS for r in want[arch] for step in r
+             for k, _ in step} | {k for k, _ in ep_want}
+    missing = sorted(kinds - set(P13_GLOO_CUDA))
+    if missing:
+        _fail(f"[phase 13] the steps issue {missing}, which gloo does not "
+              f"carry on CUDA tensors")
+    shared = {}
+    for arch in P13_ARCHS:
+        _p13_oracle(torch, arch, shared)
     out = ROOT / "build" / "phase13"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     t0 = time.perf_counter()
     mp.start_processes(_p13_rank, args=(shared, str(out)),
-                       nprocs=math.prod(EP_MESH), join=True,
-                       start_method="spawn")
+                       nprocs=n_ranks, join=True, start_method="spawn")
     wall = time.perf_counter() - t0
     ranks = [json.loads((out / f"rank{r}.json").read_text())
-             for r in range(math.prod(EP_MESH))]
+             for r in range(n_ranks)]
     shared.clear()
     _free(torch)
     bad = []
     for r in ranks:
+        for arch in P13_ARCHS:
+            a = r[arch]
+            tag = f"[phase 13] {arch} rank {r['rank']} {r['coord']}"
+            for name in ("prefill", "decode"):
+                x = a[name]
+                log(f"{tag} 13a {name}: logits block {x['shape']} "
+                    f"{x['placements']}, max |err| {x['max_err']:.4f}, "
+                    f"err/tol {x['ratio']:.3f}, finite {x['finite']}")
+                if not (x["finite"] and x["ratio"] <= 1.0):
+                    bad.append(f"{tag} {name} logits: err/tol {x['ratio']}")
+            same = a["ops"] == want[arch][r["rank"]]
+            log(f"{tag} 13b collectives prefill {a['ops'][0]}, decode "
+                f"{a['ops'][1]}: equal to the count {same}")
+            if not same:
+                bad.append(f"{tag} collectives {a['ops']} against the "
+                           f"count {want[arch][r['rank']]}")
+            rel = abs(a["placed"] - a["predicted"]) / a["predicted"]
+            log(f"{tag} 13c arguments placed {a['placed'] / 2**30:.4f} GiB "
+                f"against argument_bytes {a['predicted'] / 2**30:.4f} GiB "
+                f"({rel * 100:.3f}%); peak over the steps "
+                f"{a['peak'] / 2**30:.3f} GiB against arguments + temp "
+                f"{(a['predicted'] + temp[arch]) / 2**30:.3f} GiB; the two "
+                f"steps {a['step_s'] * 1e3:.1f} ms (host clock, gloo "
+                f"through the host)")
+            if rel > P13_ARG_TOL:
+                bad.append(f"{tag} placed {a['placed']} vs {a['predicted']}")
         tag = f"[phase 13] rank {r['rank']} {r['coord']}"
-        for name in ("prefill", "decode"):
-            x = r[name]
-            log(f"{tag} 13a {name}: logits block {x['shape']} "
-                f"{x['placements']}, max |err| {x['max_err']:.4f}, "
-                f"err/tol {x['ratio']:.3f}, finite {x['finite']}")
-            if not (x["finite"] and x["ratio"] <= 1.0):
-                bad.append(f"{tag} {name} logits: err/tol {x['ratio']}")
-        same = r["ops"] == ops_want
-        log(f"{tag} 13b collectives prefill {r['ops'][0]}, decode "
-            f"{r['ops'][1]}: equal to the count {same}; MoE dispatch "
-            f"{r['ep_ops']}: equal {r['ep_ops'] == ep_want}")
-        if not same or r["ep_ops"] != ep_want or not r["ep_finite"]:
-            bad.append(f"{tag} collectives {r['ops']} / {r['ep_ops']} "
-                       f"against the count {ops_want} / {ep_want}")
-        rel = abs(r["placed"] - r["predicted"]) / r["predicted"]
-        log(f"{tag} 13c arguments placed {r['placed'] / 2**30:.4f} GiB "
-            f"against argument_bytes {r['predicted'] / 2**30:.4f} GiB "
-            f"({rel * 100:.3f}%); peak over the steps "
-            f"{r['peak'] / 2**30:.3f} GiB against arguments + temp "
-            f"{(r['predicted'] + temp) / 2**30:.3f} GiB; the two steps "
-            f"{r['step_s'] * 1e3:.1f} ms (host clock, gloo through the "
-            f"host)")
-        if rel > P13_ARG_TOL:
-            bad.append(f"{tag} placed {r['placed']} vs {r['predicted']}")
+        log(f"{tag} 13b MoE dispatch {r['ep_ops']}: equal "
+            f"{r['ep_ops'] == ep_want}")
+        if r["ep_ops"] != ep_want or not r["ep_finite"]:
+            bad.append(f"{tag} MoE dispatch {r['ep_ops']} against the "
+                       f"count {ep_want}, finite {r['ep_finite']}")
     log(f"[phase 13] four ranks in {wall:.1f} s; "
         f"{_smi()}")
     if bad:

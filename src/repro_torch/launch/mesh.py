@@ -55,10 +55,12 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
 
 @contextlib.contextmanager
 def fake_mesh(shape: Sequence[int], axes: Sequence[str],
-              device_type: str = "cuda") -> Iterator:
-    """A ``DeviceMesh`` of ``shape`` named by ``axes``, as rank 0 of a
+              device_type: str = "cuda", rank: int = 0) -> Iterator:
+    """A ``DeviceMesh`` of ``shape`` named by ``axes``, as ``rank`` of a
     ``"fake"`` process group of ``prod(shape)`` ranks (no process, no
-    communication: a collective returns its input's shape unfilled). The
+    communication: a collective returns its input's shape unfilled; the
+    SSM core's column exchange moves a different number of columns to
+    each card, so its count is the given rank's). The
     group is destroyed on exit, on error too. Raises ``RuntimeError`` if
     a default group already exists: a run never borrows another's
     group. ``device_type`` is the kind of card the mesh stands for, which
@@ -68,16 +70,25 @@ def fake_mesh(shape: Sequence[int], axes: Sequence[str],
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.roofline import clear_dtensor_caches
     if dist.is_initialized():
         raise RuntimeError("fake_mesh: a default process group already "
                            "exists")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    # DTensor's cached plans hold the mesh they were made on, whose
+    # groups are named by rank: a mesh at a rank other than 0 (the
+    # dry-run's) takes no plan made on another mesh and leaves none
+    if rank:
+        clear_dtensor_caches(fast_path=True)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=math.prod(shape))
     try:
         yield flatten_axes(init_device_mesh(device_type, tuple(shape),
                                             mesh_dim_names=tuple(axes)))
     finally:
         dist.destroy_process_group()
+        if rank:
+            clear_dtensor_caches(fast_path=True)
 
 
 def flatten_axes(mesh):

@@ -337,13 +337,19 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _clear_dtensor_caches() -> None:
+def clear_dtensor_caches(fast_path: bool = False) -> None:
     """Empty DTensor's caches of sharding and redistribution plans and
     the fake-tensor cache. On a miss the plan is worked out with small ops
     that the counters may see; from the same empty caches every count
     sees the same ones (the first layer's), whatever was counted
-    before."""
+    before. ``fast_path``: also the C++ fast path's cache of sharding
+    propagation (torch >= 2.13), whose hits the counters never see;
+    kept, it makes counts faster, but its plans hold the mesh they were
+    made on (``mesh.fake_mesh``)."""
     from torch.distributed.tensor import _redistribute
+    if fast_path and hasattr(torch._C,
+                             "_clear_DTensor_sharding_propagator_cache"):
+        torch._C._clear_DTensor_sharding_propagator_cache()
     prop = DTensor._op_dispatcher.sharding_propagator
     for fn in (getattr(prop, "propagate_op_sharding", None),
                getattr(type(prop), "_propagate_tensor_meta_cached", None),
@@ -366,7 +372,7 @@ def count_step(step, args) -> Dict[str, int]:
     ``temp``, the peak of live tensors (``MemTracker``) less the
     arguments and the results that are not arguments (ints)."""
     from torch.distributed._tools.mem_tracker import MemTracker
-    _clear_dtensor_caches()
+    clear_dtensor_caches()
     arg_t = [_local(t) for t in _tensors(args)]
     tracker = MemTracker()
     tracker.track_external(*arg_t)

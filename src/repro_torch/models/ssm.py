@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.models.collectives import exchange_columns, ssm_columns
 from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.sharding import _axis_names, get_rules
 
@@ -157,11 +158,10 @@ def _recurrent_step(xt, dtt, a_neg, bt, ct, hprev):
 # full mamba2 block (in_proj -> conv -> SSD -> gated norm -> out_proj)
 # ---------------------------------------------------------------------------
 
-def _split_proj(zxbcdt: torch.Tensor, cfg):
-    d_inner, _, _, _, conv_dim = ssm_dims(cfg)
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, n: int):
     z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
-    dt = zxbcdt[..., d_inner + conv_dim:]
+    xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
+    dt = zxbcdt[..., 2 * d_inner + 2 * n:]
     return z, xbc, dt
 
 
@@ -192,35 +192,31 @@ def _causal_conv(xbc: torch.Tensor, conv_cache: torch.Tensor,
 
 
 def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask,
-              heads: Optional[Tuple[int, int]] = None, norm_sum=None):
+              norm_sum=None):
     """The block between its two products: the causal conv, the SSD scan
     (or the recurrent step) and the gated norm, on ``zxbcdt [B, S,
     in_proj]``; returns ``(y [B, S, d_inner], h_final, new conv)``.
 
-    ``heads = (lo, hi)``: run only heads ``[lo, hi)`` (``h0`` holds just
-    those; ``y`` is their ``(hi - lo) * P`` channels), the gated norm's
-    sum of squares over all ``d_inner`` channels taken by ``norm_sum``
-    (the sum over the cards that hold the other heads)."""
-    d_inner, h, hp, n, _ = ssm_dims(cfg)
-    z, xbc, dt_raw = _split_proj(zxbcdt, cfg)
+    With ``norm_sum``, a card's share of the heads, those of ``h0 [B, H,
+    P, N]``: ``zxbcdt``, ``conv`` and every leaf of ``p`` hold just the
+    columns those heads read, laid out as in a block of ``H`` heads
+    (their z, x and dt channels, all of B and C: ``ssm_columns``'
+    ``proj_heads`` and ``conv_heads``), and ``y`` and the new conv state
+    are theirs; the gated norm's sum of squares over all ``d_inner``
+    channels is taken by ``norm_sum`` (the sum over the cards that hold
+    the other heads)."""
+    d_inner, _, hp, n, _ = ssm_dims(cfg)
+    h = h0.shape[1]
+    z, xbc, dt_raw = _split_proj(zxbcdt, h * hp, n)
     xbc, new_conv = _causal_conv(xbc, conv, p["conv_w"], p["conv_b"],
                                  token_mask=token_mask)
-    x_ssm = xbc[..., :d_inner]
-    b_in = xbc[..., d_inner:d_inner + n]
-    c_in = xbc[..., d_inner + n:]
-    dt_bias, a_log, d_skip = p["dt_bias"], p["A_log"], p["D"]
-    norm_w = p["gate_norm"]
-    if heads is not None:
-        lo, hi = heads
-        ch = slice(lo * hp, hi * hp)
-        x_ssm, z, norm_w = x_ssm[..., ch], z[..., ch], norm_w[ch]
-        dt_raw = dt_raw[..., lo:hi]
-        dt_bias, a_log, d_skip = dt_bias[lo:hi], a_log[lo:hi], d_skip[lo:hi]
-        h = hi - lo
-    dt = F.softplus(dt_raw.float() + dt_bias.float())       # [B,S,H]
+    x_ssm = xbc[..., :h * hp]
+    b_in = xbc[..., h * hp:h * hp + n]
+    c_in = xbc[..., h * hp + n:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # [B,S,H]
     if token_mask is not None:
         dt = torch.where(token_mask[..., None], dt, 0.0)
-    a_neg = -torch.exp(a_log.float())                        # [H]
+    a_neg = -torch.exp(p["A_log"].float())                   # [H]
 
     bsz, s, _ = zxbcdt.shape
     xh = x_ssm.reshape(bsz, s, h, hp)
@@ -232,77 +228,116 @@ def _ssm_core(p: Dict, cfg, zxbcdt, h0, conv, decode: bool, token_mask,
         y, h_final = ssd_chunked(xh, dt, a_neg, b_in, c_in, h0,
                                  cfg.ssm_chunk)
     y = y + xh.float().to(y.dtype) \
-        * d_skip.to(y.dtype)[None, None, :, None]
+        * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, h * hp) * F.silu(z)
     if norm_sum is None:
-        return rmsnorm(y, norm_w, cfg.norm_eps), h_final, new_conv
+        return rmsnorm(y, p["gate_norm"], cfg.norm_eps), h_final, new_conv
     # rmsnorm over every card's channels: the mean square all-reduced
     g = y.float()
     var = norm_sum((g * g).sum(dim=-1, keepdim=True)) / d_inner
     g = g * torch.rsqrt(var + cfg.norm_eps)
-    return (g * (1.0 + norm_w.float())).to(y.dtype), h_final, new_conv
+    return ((g * (1.0 + p["gate_norm"].float())).to(y.dtype), h_final,
+            new_conv)
+
+
+# the leaves whose last dimension runs over the conv channels (sharded by
+# their specs as the conv state is, and exchanged with it)
+_CONV_LEAVES = ("conv_w", "conv_b")
 
 
 def _ssm_core_partitioned(p: Dict, cfg, zxbcdt, h0, conv, decode: bool,
                           token_mask):
     """:func:`_ssm_core` on ``DTensor``s, on each card's blocks
     (``local_map``): its batch rows and, where the heads rule's mesh
-    dimension divides the heads, its heads, as GSPMD keeps them. The
-    projection's parts (z, x, B, C, dt) are cut across the model axis's
-    blocks, so each card takes them whole and keeps its heads' channels
-    (and B and C, which every head reads); the recurrent state stays
-    split by heads; the gated norm's sum of squares is all-reduced over
-    the heads' dimension, and ``y`` comes out split there, as the
-    row-parallel ``out_proj`` takes it. The state comes back laid out as
-    it was given."""
+    dimension divides the heads and splits the projection and the conv
+    channels into even blocks, its heads, as GSPMD keeps them.
+
+    Split by heads, each card starts from its column blocks of the
+    projection (``Shard(2)``, the column-parallel product's) and of the
+    conv state and weights (their specs' channel blocks), and one
+    all-to-all over the heads' dimension for each brings the columns its
+    heads read that it lacks (``collectives.exchange_columns``: their z,
+    x and dt, all of B and C); nothing else moves. The new conv state
+    goes back to the spec's blocks by the reverse move (B and C stay:
+    every card computes them whole); the recurrent state stays split by
+    heads; the gated norm's sum of squares is all-reduced over the
+    heads' dimension, and ``y`` comes out split there, as the
+    row-parallel ``out_proj`` takes it. Otherwise (hymba-1.5b's 50 heads
+    on 16 cards) every card runs every head of its rows on the whole
+    projection and conv state. A state given as ``DTensor``s (a cache)
+    comes back laid out as it was given; a plain one (training's zero
+    state, which the step drops) comes back as computed, so no
+    collective lays it out."""
     mesh = zxbcdt.device_mesh
-    _, n_heads, _, _, _ = ssm_dims(cfg)
+    d_inner, n_heads, hp, n, conv_dim = ssm_dims(cfg)
     rows = [Shard(0) if pl == Shard(0) else Replicate()
             for pl in zxbcdt.placements]
     names = list(mesh.mesh_dim_names)
     h_dims = [i for i in (names.index(a) for a in _axis_names(
         (get_rules() or {}).get("heads")))
         if rows[i] == Replicate() and mesh.size(i) > 1]
-    if len(h_dims) != 1 or n_heads % mesh.size(h_dims[0]):
+    if len(h_dims) != 1 or any(w % mesh.size(h_dims[0]) for w in (
+            n_heads, zxbcdt.shape[2], conv_dim)):
         h_dims = []
     heads = [Shard(1) if i in h_dims else pl for i, pl in enumerate(rows)]
     chans = [Shard(2) if i in h_dims else pl for i, pl in enumerate(rows)]
-    whole = [Replicate()] * mesh.ndim
+    given = [t.placements if isinstance(t, DTensor) else None
+             for t in (h0, conv)]
     h0, conv = _as_dtensor(h0, mesh), _as_dtensor(conv, mesh)
-    args = [zxbcdt.redistribute(mesh, rows), h0.redistribute(mesh, heads),
-            conv.redistribute(mesh, rows)]
-    places = [rows, heads, rows]
+    args = [zxbcdt.redistribute(mesh, chans), h0.redistribute(mesh, heads),
+            conv.redistribute(mesh, chans)]
+    places = [chans, heads, chans]
     if token_mask is not None:
         token_mask = _as_dtensor(token_mask, mesh).redistribute(mesh, rows)
-    weights = {k: _as_dtensor(v, mesh).redistribute(mesh, whole)
+    # the conv leaves in their channel blocks, the rest whole; each
+    # card's rows give part of every weight's gradient, and its heads
+    # part of a whole one's (the exchange's backward sums the conv
+    # leaves' and the projection's and conv state's at their owners)
+    w_places, w_grads = {}, {}
+    for k, v in p.items():
+        pl = [Shard(v.ndim - 1) if k in _CONV_LEAVES and i in h_dims
+              else Replicate() for i in range(mesh.ndim)]
+        w_places[k] = tuple(pl)
+        w_grads[k] = tuple(
+            Partial() if rows[i].is_shard() or (
+                i in h_dims and pl[i] == Replicate()) else pl[i]
+            for i in range(mesh.ndim))
+    weights = {k: _as_dtensor(v, mesh).redistribute(mesh, w_places[k])
                for k, v in p.items()}
-    # each card's rows and heads give part of the weights' gradient, and
-    # of the projection's and the conv state's (B and C feed every head)
-    part = [Partial() if pl.is_shard() or i in h_dims else Replicate()
-            for i, pl in enumerate(rows)]
-    mixed = [Partial() if i in h_dims else pl for i, pl in enumerate(rows)]
 
     def core(zx, h, c, mask, *w):
+        w = dict(zip(weights, w))
         if not h_dims:
-            return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode,
-                             mask)
-        n_loc = h.shape[1]
-        lo = mesh.get_local_rank(h_dims[0]) * n_loc
-        return _ssm_core(dict(zip(weights, w)), cfg, zx, h, c, decode, mask,
-                         heads=(lo, lo + n_loc),
-                         norm_sum=lambda t: _SumOver.apply(t, mesh,
-                                                           h_dims[0]))
+            return _ssm_core(w, cfg, zx, h, c, decode, mask)
+        group, m = mesh.get_group(h_dims[0]), mesh.size(h_dims[0])
+        rank = mesh.get_local_rank(h_dims[0])
+        cols = ssm_columns(d_inner, n_heads, n, m)
+
+        def to_heads(t):
+            return exchange_columns(t, group, cols["conv_blocks"],
+                                    cols["conv_heads"], rank)
+        lo, hi = rank * h.shape[1], (rank + 1) * h.shape[1]
+        w.update({k: to_heads(w[k]) for k in _CONV_LEAVES},
+                 gate_norm=w["gate_norm"][lo * hp:hi * hp],
+                 **{k: w[k][lo:hi] for k in ("dt_bias", "A_log", "D")})
+        y, h_new, c_new = _ssm_core(
+            w, cfg, exchange_columns(zx, group, cols["proj_blocks"],
+                                     cols["proj_heads"], rank),
+            h, to_heads(c), decode, mask,
+            norm_sum=lambda t: _SumOver.apply(t, mesh, h_dims[0]))
+        return y, h_new, exchange_columns(c_new, group, cols["conv_heads"],
+                                          cols["conv_blocks"], rank)
     y, h_new, c_new = local_map(
-        core, out_placements=(chans, heads, rows),
+        core, out_placements=(chans, heads, chans),
         in_placements=tuple(map(tuple, places)) + (
             None if token_mask is None else tuple(rows),)
-        + (tuple(whole),) * len(weights),
-        in_grad_placements=(tuple(mixed), tuple(heads), tuple(mixed)) + (
+        + tuple(w_places.values()),
+        in_grad_placements=tuple(map(tuple, places)) + (
             None if token_mask is None else tuple(rows),)
-        + (tuple(part),) * len(weights),
+        + tuple(w_grads.values()),
         device_mesh=mesh)(*args, token_mask, *weights.values())
-    return (y, h_new.redistribute(mesh, h0.placements),
-            c_new.redistribute(mesh, conv.placements))
+    return (y,) + tuple(t if pl is None else t.redistribute(mesh, pl)
+                        for t, pl in zip((h_new, c_new), given))
 
 
 class _SumOver(torch.autograd.Function):

@@ -26,15 +26,19 @@ Cases:
     pinned in ``DEPARTURES``;
 (c) four gloo processes on the CPU run smoke steps on real tensors,
     issue exactly the collectives that the fake mesh counts, and compute
-    the logits (or the loss) that one process does;
+    the logits (or the loss and AdamW's first moments, the gradients)
+    that one process does;
 (d) per-card FLOPs times the cards equal one card's count where every
     product splits, and the per-card argument bytes of the ``DTensor``s
     equal ``argument_bytes``;
 (e) the fake group is gone after a dry-run, and after one that raises;
 (f) the calibrated collective bytes and count equal a full-depth count
-    at 3 and 4 layers.
+    at 3 and 4 layers;
+(g) where the model axis divides the heads, the SSM core moves columns
+    by all-to-all and gathers nothing.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -70,6 +74,7 @@ from repro_torch.launch.specs import distribute, make_specs  # noqa: E402
 from repro_torch.models import sharding  # noqa: E402
 from repro_torch.models.layers import embed  # noqa: E402
 from repro_torch.models.moe import ep_moe  # noqa: E402
+from repro_torch.training.tree import flatten  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 MESH, AXES = (2, 2), ("data", "model")
@@ -85,17 +90,12 @@ SEQ, BATCH = 256, 8
 BAND = (0.5, 2.0)
 # (arch, kind) -> the measured ratio, pinned to RATIO_TOL (ROADMAP.md
 # queue 3): the dense decode steps write the cache with no collective
-# (JAX moves each new token's K/V by all-to-all); the SSM decode steps
-# gather the projection's output and the conv state over the model axis
-# (each card then keeps its heads), where JAX moves only the pieces a
-# card lacks by collective-permute
+# (JAX moves each new token's K/V by all-to-all)
 DEPARTURES = {
     ("llama3-8b", "decode"): 0.24939,
     ("qwen3-32b", "decode"): 0.24939,
     ("gemma3-27b", "decode"): 0.24939,
     ("whisper-base", "decode"): 0.33258,
-    ("mamba2-780m", "decode"): 3.48726,
-    ("hymba-1.5b", "decode"): 2.63429,
 }
 RATIO_TOL = 1e-3
 JAX_TIMEOUT = 600
@@ -105,13 +105,16 @@ MOE_ARCH, MOE_T = "kimi-k2-1t-a32b", 16
 ROW_H, ROW_W = (8, 32), (32, 16)
 # (a): the embedding of ids [8, 4] in a [64, 16] fp32 table
 EMB_TABLE, EMB_IDS = (64, 16), (8, 4)
-# (c): each run's logits (or loss) against one process's, fp32
+# (c): each run's logits (or loss and first moments) against one
+# process's, fp32
 VALUE_RTOL, VALUE_ATOL = 1e-4, 1e-5
 # (c): the steps the gloo ranks run (each over its own blocks): a dense
-# step with its backward and AdamW, and one decode step of each region
-# kind (MLA and the MoE body, the SSM core by heads, whisper's rows)
-GLOO_STEPS = (("llama3-8b", "train"), ("deepseek-v2-236b", "decode"),
-              ("mamba2-780m", "decode"), ("whisper-base", "decode"))
+# and an SSM step with their backward and AdamW, and one decode step of
+# each region kind (MLA and the MoE body, the SSM core by heads and its
+# column exchange, whisper's rows)
+GLOO_STEPS = (("llama3-8b", "train"), ("mamba2-780m", "train"),
+              ("deepseek-v2-236b", "decode"), ("mamba2-780m", "decode"),
+              ("whisper-base", "decode"))
 
 
 def _shape(kind):
@@ -266,9 +269,13 @@ def _whole(tree, gen):
 
 
 def _result(kind, out):
-    """The value a step's run is held to: a serving step's logits, a
-    training step's loss."""
-    return out[-1] if kind == "train" else out[0]
+    """The values a step's run is held to: a serving step's logits, a
+    training step's loss and AdamW's first moments (a tenth of each
+    gradient leaf, after clipping)."""
+    if kind != "train":
+        return {"logits": out[0]}
+    return {"loss": out[-1]} | {f"m/{k}": v
+                                for k, v in flatten(out[1]["m"]).items()}
 
 
 def _one_process(arch, kind):
@@ -296,7 +303,7 @@ def _gloo_rank(rank, store, out_dir):
                 with implicit_replication(), \
                         roofline.CollectiveCounter() as cc:
                     res = _result(kind, step(*args))
-                res = res.full_tensor()
+                res = {k: v.full_tensor() for k, v in res.items()}
             finally:
                 sharding.set_rules(None)
             (Path(out_dir) / f"{arch}_{kind}_{rank}.json").write_text(
@@ -307,10 +314,14 @@ def _gloo_rank(rank, store, out_dir):
         dist.destroy_process_group()
 
 
-def _fake_ops(arch, kind):
+@functools.lru_cache(maxsize=None)
+def _fake_ops(arch, kind, shape=MESH, rank=0):
+    """The collectives of a smoke step as ``rank`` of a fake mesh of
+    ``shape`` over ``AXES``, in order, counted once per process."""
     cfg = get_config(arch, smoke=True)
-    step, specs = make_specs(cfg, _shape(kind), LOGICAL, multi_pod=False)
-    with fake_mesh(MESH, AXES, device_type="cpu") as mesh:
+    step, specs = make_specs(cfg, _shape(kind), LogicalMesh(
+        dict(zip(AXES, shape))), multi_pod=False)
+    with fake_mesh(shape, AXES, device_type="cpu", rank=rank) as mesh:
         sharding.set_rules(sharding_rules(False, cfg), mesh)
         try:
             from torch.distributed.tensor.experimental import \
@@ -325,7 +336,10 @@ def _fake_ops(arch, kind):
 def test_gloo_ranks_issue_the_counted_collectives(tmp_path):
     ctx = mp.start_processes(_gloo_rank, args=(tmp_path / "store", tmp_path),
                              nprocs=4, start_method="spawn", join=False)
-    want = {step: _fake_ops(*step) for step in GLOO_STEPS}
+    # each rank's own count: the SSM core's exchange moves a different
+    # number of columns to each card
+    want = {(step, rank): _fake_ops(*step, MESH, rank)
+            for step in GLOO_STEPS for rank in range(4)}
     value = {step: _one_process(*step) for step in GLOO_STEPS}
     while not ctx.join():
         pass
@@ -333,13 +347,16 @@ def test_gloo_ranks_issue_the_counted_collectives(tmp_path):
         for rank in range(4):
             got = json.loads(
                 (tmp_path / f"{arch}_{kind}_{rank}.json").read_text())
-            assert got == want[arch, kind], (arch, kind, rank)
-        assert want[arch, kind], (arch, kind)
+            assert got == want[(arch, kind), rank], (arch, kind, rank)
+            assert got, (arch, kind, rank)
         # the partitioned run computes what one process does (fp32: the
         # ranks sum their partial products in another order)
-        torch.testing.assert_close(
-            torch.load(tmp_path / f"{arch}_{kind}.pt"), value[arch, kind],
-            rtol=VALUE_RTOL, atol=VALUE_ATOL, msg=f"{arch} {kind}")
+        got = torch.load(tmp_path / f"{arch}_{kind}.pt")
+        assert got.keys() == value[arch, kind].keys()
+        for name, v in value[arch, kind].items():
+            torch.testing.assert_close(got[name], v, rtol=VALUE_RTOL,
+                                       atol=VALUE_ATOL,
+                                       msg=f"{arch} {kind} {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +500,19 @@ def test_step_collectives_near_jax(arch, kind, jax_ref):
         assert ratio == pytest.approx(DEPARTURES[arch, kind], rel=RATIO_TOL)
     else:
         assert BAND[0] <= ratio <= BAND[1]
+
+
+@pytest.mark.parametrize("kind,mesh", [("decode", MESH), ("prefill", MESH),
+                                       ("decode", (1, 4))])
+def test_ssm_core_moves_no_all_gather(kind, mesh):
+    """Where the model axis divides the smoke heads (8 of them), the
+    partitioned mamba2 serving step moves each card's missing columns by
+    all-to-all, five a layer (the projection, the conv state and its two
+    weights, the new conv state back), and gathers nothing."""
+    kinds = [k for k, _ in _fake_ops("mamba2-780m", kind, mesh)]
+    assert "all-gather" not in kinds
+    assert kinds.count("all-to-all") == \
+        5 * get_config("mamba2-780m", smoke=True).n_layers
 
 
 if __name__ == "__main__":
