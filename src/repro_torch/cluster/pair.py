@@ -35,6 +35,7 @@ from typing import List, Tuple
 from repro_torch.core.engine import Engine
 from repro_torch.core.request import ReqState, Request
 from repro_torch.cluster.runtime import Endpoint
+from repro_torch.obs import host
 
 
 class CronusPairEndpoint(Endpoint):
@@ -81,6 +82,12 @@ class CronusPairEndpoint(Endpoint):
     def submit(self, req: Request, runtime=None):
         """Dispatch one request through the pair protocol (steps 1-3):
         pull CPI stats, choose the split, start the partial prefill."""
+        with host.span("pair.submit") as sp:
+            self._submit(req, runtime)
+            if sp:
+                sp.args = {"req": req.req_id, "l_p": req.partial_len}
+
+    def _submit(self, req: Request, runtime) -> None:
         self.ppi.clock = max(self.ppi.clock, req.arrival)
         stats = self.cpi.stats()                            # step (1)
         l_p = self.balancer.partial_prefill_length(          # step (2)

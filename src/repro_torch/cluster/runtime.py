@@ -38,6 +38,7 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.metrics import aggregate
 from repro_torch.core.request import ReqState, Request
 from repro_torch.kvcache.transfer import TransferEngine
+from repro_torch.obs import host
 
 
 @dataclasses.dataclass(frozen=True)
@@ -465,6 +466,10 @@ class ClusterRuntime:
         next event time). Returns False only when no progress is possible
         at all — the online facade (``repro_torch.serving.api``) drives this
         incrementally; ``run`` below is the batch replay over it."""
+        with host.span("runtime.tick"):
+            return self._tick(pending)
+
+    def _tick(self, pending: deque) -> bool:
         self._dispatch(pending)
 
         # ---- internal handoffs; fire what they posted --------------

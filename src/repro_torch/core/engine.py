@@ -30,6 +30,7 @@ import numpy as np
 from repro_torch.core.balancer import CPIStats
 from repro_torch.core.request import ReqState, Request
 from repro_torch.kvcache import BlockAllocator
+from repro_torch.obs import host
 from repro_torch.scheduling import IterationPlan, SchedulerView, make_scheduler
 
 
@@ -324,6 +325,10 @@ class Engine:
     # ------------------------------------------------------------------
     def step(self) -> float:
         """Execute one iteration; returns its simulated duration (s)."""
+        with host.span("engine.step") as sp:
+            return self._step(sp)
+
+    def _step(self, sp) -> float:
         tracer = self.tracer
         t_start = self.clock
         plan = self.scheduler.plan(self._view())
@@ -401,6 +406,9 @@ class Engine:
                        and r.context_len >= r.partial_len) else 0]
                 for r, n in chunks]
             migrated_tokens = sum(c[1] for c in chunk_info if c[3])
+        if sp:
+            sp.args = {"engine": self.name, "decode": len(decode_reqs),
+                       "prefill_tokens": sum(n for _, n in chunks)}
 
         if not chunks and not decode_reqs:
             # idle iteration (only transfers); ingest-completed requests

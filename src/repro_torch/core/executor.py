@@ -39,6 +39,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.rope import position_encode
+from repro_torch.obs import host
 
 
 def _pow2_bucket(n: int, lo: int = 16) -> int:
@@ -601,70 +602,91 @@ class PagedRealExecutor:
                       completes: bool, enc_emb=None) -> Optional[int]:
         """Run one prefill chunk for ``slot`` through the request's block
         table. Returns the first output token if the prompt completes."""
-        table = self._alloc().block_table(self._req_id(slot))
-        page = self.page
-        c = len(tokens)
-        total = ctx_len + c
-        cb = self.buckets.bucket(c, lo=16)
-        pb = self.buckets.bucket(math.ceil(total / page), lo=4)
-        assert len(table) * page >= total, "block table behind context"
+        with host.span("executor.prefill_chunk", "prep") as sp:
+            req_id = self._req_id(slot)
+            if sp:
+                sp.args = {"engine": self._engine.name, "req": req_id,
+                           "tokens": len(tokens), "context": int(ctx_len)}
+            table = self._alloc().block_table(req_id)
+            page = self.page
+            c = len(tokens)
+            total = ctx_len + c
+            cb = self.buckets.bucket(c, lo=16)
+            pb = self.buckets.bucket(math.ceil(total / page), lo=4)
+            assert len(table) * page >= total, "block table behind context"
 
-        tok = np.zeros((1, cb), np.int32)
-        tok[0, :c] = tokens
-        pos = np.full((1, cb), -1, np.int32)
-        pos[0, :c] = ctx_len + np.arange(c)
-        widx = np.full((cb,), self._trash * page, np.int64)
-        for j in range(c):
-            widx[j] = self._flat_idx(table, ctx_len + j)
-        tbl = np.full((pb,), self._trash, np.int64)
-        take = min(len(table), pb)
-        tbl[:take] = table[:take]
+            tok = np.zeros((1, cb), np.int32)
+            tok[0, :c] = tokens
+            pos = np.full((1, cb), -1, np.int32)
+            pos[0, :c] = ctx_len + np.arange(c)
+            widx = np.full((cb,), self._trash * page, np.int64)
+            for j in range(c):
+                widx[j] = self._flat_idx(table, ctx_len + j)
+            tbl = np.full((pb,), self._trash, np.int64)
+            take = min(len(table), pb)
+            tbl[:take] = table[:take]
 
-        self.buckets.record("prefill", cb, pb)
-        x = self._prefill_fwd(self._tensor(tok, torch.long),
-                              self._tensor(pos), self._tensor(widx, torch.long),
-                              self._tensor(tbl, torch.long), total)
-        if not completes:
-            return None
-        # only the last prompt token's logits are read
-        self.last_logits = self._finish(x[:, c - 1]).float().cpu().numpy()
-        return robust_greedy(self.last_logits[0])
+            self.buckets.record("prefill", cb, pb)
+            sp.phase("launch")
+            x = self._prefill_fwd(self._tensor(tok, torch.long),
+                                  self._tensor(pos),
+                                  self._tensor(widx, torch.long),
+                                  self._tensor(tbl, torch.long), total)
+            if not completes:
+                return None
+            # only the last prompt token's logits are read
+            logits = self._finish(x[:, c - 1]).float()
+            sp.phase("readback")
+            self.last_logits = logits.cpu().numpy()
+            sp.phase("pick")
+            return robust_greedy(self.last_logits[0])
 
     @torch.no_grad()
     def decode(self, slot_tokens: Dict[int, int],
                slot_lens: Dict[int, int]) -> Dict[int, int]:
         """One decode step over the active slots' block tables."""
-        alloc = self._alloc()
-        page = self.page
-        slots = sorted(slot_tokens)
-        tables = [alloc.block_table(self._req_id(s)) for s in slots]
-        n = len(slots)
-        bb = self.buckets.bucket(n, lo=4)
-        pb = self.buckets.bucket(
-            max(math.ceil((slot_lens[s] + 1) / page) for s in slots), lo=4)
+        with host.span("executor.decode", "prep") as sp:
+            alloc = self._alloc()
+            page = self.page
+            slots = sorted(slot_tokens)
+            req_ids = [self._req_id(s) for s in slots]
+            if sp:
+                sp.args = {"engine": self._engine.name, "lanes": len(slots),
+                           "reqs": req_ids}
+            tables = [alloc.block_table(r) for r in req_ids]
+            n = len(slots)
+            bb = self.buckets.bucket(n, lo=4)
+            pb = self.buckets.bucket(
+                max(math.ceil((slot_lens[s] + 1) / page) for s in slots),
+                lo=4)
 
-        tok = np.zeros((bb,), np.int64)
-        pos = np.zeros((bb,), np.int32)
-        widx = np.full((bb,), self._trash * page, np.int64)
-        tbl = np.full((bb, pb), self._trash, np.int32)
-        ctx = np.zeros((bb,), np.int32)
-        for i, s in enumerate(slots):
-            p = slot_lens[s]
-            tok[i] = slot_tokens[s]
-            pos[i] = p
-            widx[i] = self._flat_idx(tables[i], p)
-            take = min(len(tables[i]), pb)
-            tbl[i, :take] = tables[i][:take]
-            ctx[i] = p + 1
+            tok = np.zeros((bb,), np.int64)
+            pos = np.zeros((bb,), np.int32)
+            widx = np.full((bb,), self._trash * page, np.int64)
+            tbl = np.full((bb, pb), self._trash, np.int32)
+            ctx = np.zeros((bb,), np.int32)
+            for i, s in enumerate(slots):
+                p = slot_lens[s]
+                tok[i] = slot_tokens[s]
+                pos[i] = p
+                widx[i] = self._flat_idx(tables[i], p)
+                take = min(len(tables[i]), pb)
+                tbl[i, :take] = tables[i][:take]
+                ctx[i] = p + 1
 
-        self.buckets.record("decode", bb, pb)
-        x = self._decode_fwd(self._tensor(tok, torch.long), self._tensor(pos),
-                             self._tensor(widx, torch.long),
-                             self._tensor(tbl), self._tensor(ctx))
-        # one [n, V] block to the host per step
-        self.last_logits = self._finish(x[:n]).float().cpu().numpy()
-        return {s: robust_greedy(self.last_logits[i])
-                for i, s in enumerate(slots)}
+            self.buckets.record("decode", bb, pb)
+            sp.phase("launch")
+            x = self._decode_fwd(self._tensor(tok, torch.long),
+                                 self._tensor(pos),
+                                 self._tensor(widx, torch.long),
+                                 self._tensor(tbl), self._tensor(ctx))
+            logits = self._finish(x[:n]).float()
+            # one [n, V] block to the host per step
+            sp.phase("readback")
+            self.last_logits = logits.cpu().numpy()
+            sp.phase("pick")
+            return {s: robust_greedy(self.last_logits[i])
+                    for i, s in enumerate(slots)}
 
     # ------------------------------------------------------------------
     # KV handoff: block-granular, sized by the partial prefill
@@ -674,13 +696,19 @@ class PagedRealExecutor:
         the partial prefill travel. The payload is a copy on the device
         (indexing with a tensor copies): the PPI frees and reuses these
         blocks before the simulated transfer delivers it."""
-        table = self._alloc().block_table(self._req_id(slot))
-        nblk = math.ceil(upto / self.page)
-        idx = torch.as_tensor(np.asarray(table[:nblk], np.int64),
-                              device=self.device)
-        return {"k_pages": self.k_pool[:, idx],
-                "v_pages": self.v_pool[:, idx],
-                "_upto": upto, "_page": self.page}
+        with host.span("executor.extract_kv", "prep") as sp:
+            req_id = self._req_id(slot)
+            if sp:
+                sp.args = {"engine": self._engine.name, "req": req_id,
+                           "tokens": int(upto)}
+            table = self._alloc().block_table(req_id)
+            nblk = math.ceil(upto / self.page)
+            sp.phase("launch")
+            idx = torch.as_tensor(np.asarray(table[:nblk], np.int64),
+                                  device=self.device)
+            return {"k_pages": self.k_pool[:, idx],
+                    "v_pages": self.v_pool[:, idx],
+                    "_upto": upto, "_page": self.page}
 
     @torch.no_grad()
     def inject_kv(self, slot: int, payload, upto: int):
@@ -689,28 +717,35 @@ class PagedRealExecutor:
         local prefix cache already covers (``allocator.shared_tokens``)
         are skipped: shared blocks are immutable, and their content is
         already resident."""
-        alloc = self._alloc()
-        assert payload["_page"] == self.page, \
-            "page-size mismatch across a paged handoff"
-        req_id = self._req_id(slot)
-        table = alloc.block_table(req_id)
-        shared = (alloc.shared_tokens(req_id)
-                  if hasattr(alloc, "shared_tokens") else 0)
-        p_upto = int(payload["_upto"])
-        start = min(shared, p_upto)
-        n = p_upto - start
-        if n <= 0:
-            return
-        l_dim, kvh, hd = (self.k_pool.shape[0], self.k_pool.shape[3],
-                          self.k_pool.shape[4])
-        dst = torch.as_tensor(
-            np.asarray([self._flat_idx(table, start + j) for j in range(n)],
-                       np.int64), device=self.device)
-        self.buckets.record("inject", self.buckets.bucket(n, lo=self.page))
-        for pool, key in ((self.k_pool, "k_pages"), (self.v_pool, "v_pages")):
-            src = payload[key].reshape(l_dim, -1, kvh, hd)[:, start:p_upto]
-            pool.view(l_dim, -1, kvh, hd).index_copy_(
-                1, dst, src.to(device=self.device, dtype=pool.dtype))
+        with host.span("executor.inject_kv", "prep") as sp:
+            alloc = self._alloc()
+            assert payload["_page"] == self.page, \
+                "page-size mismatch across a paged handoff"
+            req_id = self._req_id(slot)
+            table = alloc.block_table(req_id)
+            shared = (alloc.shared_tokens(req_id)
+                      if hasattr(alloc, "shared_tokens") else 0)
+            p_upto = int(payload["_upto"])
+            start = min(shared, p_upto)
+            n = p_upto - start
+            if sp:
+                sp.args = {"engine": self._engine.name, "req": req_id,
+                           "tokens": max(n, 0)}
+            if n <= 0:
+                return
+            l_dim, kvh, hd = (self.k_pool.shape[0], self.k_pool.shape[3],
+                              self.k_pool.shape[4])
+            flat = np.asarray([self._flat_idx(table, start + j)
+                               for j in range(n)], np.int64)
+            self.buckets.record("inject",
+                                self.buckets.bucket(n, lo=self.page))
+            sp.phase("launch")
+            dst = torch.as_tensor(flat, device=self.device)
+            for pool, key in ((self.k_pool, "k_pages"),
+                              (self.v_pool, "v_pages")):
+                src = payload[key].reshape(l_dim, -1, kvh, hd)[:, start:p_upto]
+                pool.view(l_dim, -1, kvh, hd).index_copy_(
+                    1, dst, src.to(device=self.device, dtype=pool.dtype))
 
     def reset_slot(self, slot: int):
         """Nothing to scrub: validity lives in the allocator's tables and
