@@ -36,7 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, paged_attention
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.rope import position_encode
 from repro_torch.obs import host
@@ -329,6 +329,31 @@ class RealExecutor:
                 stack[k][:, slot] = 0
 
 
+class _DecodeGraph:
+    """One captured decode step at a bucket ``(bb, pb)``: its static inputs,
+    staged in one pinned host buffer and moved by one copy into one device
+    block that the five input tensors view, its static logits, and the
+    attention kernel's launches that one replay makes."""
+
+    def __init__(self, bb: int, pb: int, device):
+        size = 6 * bb + bb * pb
+        self.host = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        self.dev = torch.empty(size, dtype=torch.int32, device=device)
+        self.arrays = tuple(t.numpy() for t in self._views(self.host, bb, pb))
+        self.inputs = self._views(self.dev, bb, pb)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None      # [bb, V] fp32
+        self.launches = 0
+
+    @staticmethod
+    def _views(buf: torch.Tensor, bb: int, pb: int) -> Tuple:
+        """``_decode_fwd``'s inputs (tok, pos, widx, tbl, ctx) viewed in an
+        int32 buffer: the two int64 arrays first, at even words."""
+        return (buf[:2 * bb].view(torch.int64), buf[4 * bb:5 * bb],
+                buf[2 * bb:4 * bb].view(torch.int64),
+                buf[6 * bb:].view(bb, pb), buf[5 * bb:6 * bb])
+
+
 class PagedRealExecutor:
     """PyTorch execution over a block-pool KV cache driven by the engine's
     live block tables.
@@ -358,6 +383,17 @@ class PagedRealExecutor:
     when the model lies on a CUDA device and the plain versions on the CPU;
     ``use_kernels=False`` on CUDA runs the plain versions, for parity
     checks that ask for them.
+
+    With the kernels, a decode step replays a CUDA graph of the whole
+    forward (embedding through the head's fp32 logits) instead of
+    launching its ~80 operations a layer from Python: one graph per
+    bucket ``(bb, pb)`` of lanes and table pages, captured on the first
+    step that meets it, all of them in one memory pool. Every lane of a
+    bucket's static inputs is written before each replay, padded lanes
+    pointing at the trash page, so a narrower step never replays a wider
+    one's live writes. ``graph_captures`` and ``graph_replays`` count
+    them. On the CPU, and with ``use_kernels=False``, decode runs the
+    eager forward.
 
     Supported model families: dense-attention stacks ("mlp" kind: llama3,
     qwen2, qwen3 with qk-norm, deepseek-coder, starcoder2) without
@@ -407,6 +443,12 @@ class PagedRealExecutor:
         # host copy of the newest logits block (prefill: [1, V] when the
         # prompt completes; decode: [n, V]), for parity checks
         self.last_logits: Optional[np.ndarray] = None
+        # captured decode steps by (bb, pb); the pools they write are
+        # baked in, so attach_engine drops them
+        self._graphs: Dict[Tuple[int, int], _DecodeGraph] = {}
+        self._graph_pool = None
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     def compile_stats(self) -> Dict[str, int]:
         """Distinct bucketed dispatch shapes per kind (see BucketCache)."""
@@ -435,6 +477,9 @@ class PagedRealExecutor:
                                   device=self.device)
         self.v_pool = torch.zeros(shape, dtype=self.model.dtype,
                                   device=self.device)
+        # a pool whose graphs are all gone cannot take a new capture
+        self._graphs.clear()
+        self._graph_pool = None
         self._engine = engine
         self._hook_allocator(engine.allocator)
 
@@ -591,6 +636,50 @@ class PagedRealExecutor:
             x = self._attn_out(i, x, out[:, None])
         return x[:, 0]
 
+    def _graph_fwd(self, g: _DecodeGraph) -> torch.Tensor:
+        """The decode forward over a bucket's static inputs -> [bb, V]
+        fp32 logits (what a graph captures)."""
+        return self._finish(self._decode_fwd(*g.inputs)).float()
+
+    def _capture(self, g: _DecodeGraph) -> None:
+        """Capture ``g``'s graph: one eager warm-up on a side stream, then
+        the capture on it, both over inputs that point every lane at the
+        trash page (the warm-up runs; it must write nothing live).
+
+        ``capture_begin``/``capture_end`` in place of ``torch.cuda.graph``,
+        which also runs ``gc.collect()`` and ``empty_cache()`` on every
+        capture: a serving process's allocator cache holds gigabytes that
+        the next steps would only allocate again. The attention kernel's
+        wrapper counts the launches the capture records, which each replay
+        makes; the capture itself launches nothing, so its count is taken
+        back."""
+        tok, pos, widx, tbl, ctx = g.inputs
+        tok.zero_()
+        pos.zero_()
+        widx.fill_(self._trash * self.page)
+        tbl.fill_(self._trash)
+        ctx.zero_()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self._graph_fwd(g)
+            side.synchronize()
+            launched = paged_attention.launches
+            graph.capture_begin(pool=self._graph_pool)
+            try:
+                g.logits = self._graph_fwd(g)
+            finally:
+                graph.capture_end()
+            g.launches = paged_attention.launches - launched
+            paged_attention.launches = launched
+        main.wait_stream(side)
+        g.graph = graph
+        self.graph_captures += 1
+
     # ------------------------------------------------------------------
     # executor interface
     # ------------------------------------------------------------------
@@ -660,11 +749,26 @@ class PagedRealExecutor:
                 max(math.ceil((slot_lens[s] + 1) / page) for s in slots),
                 lo=4)
 
-            tok = np.zeros((bb,), np.int64)
-            pos = np.zeros((bb,), np.int32)
-            widx = np.full((bb,), self._trash * page, np.int64)
-            tbl = np.full((bb, pb), self._trash, np.int32)
-            ctx = np.zeros((bb,), np.int32)
+            # the kernels' path replays the bucket's graph (captured below
+            # on its first step), whose inputs are written in place
+            g = None
+            if self.use_kernels:
+                g = self._graphs.get((bb, pb))
+                if g is None:
+                    g = self._graphs[(bb, pb)] = _DecodeGraph(bb, pb,
+                                                              self.device)
+                tok, pos, widx, tbl, ctx = g.arrays
+            else:
+                tok, widx = np.empty((2, bb), np.int64)
+                pos, ctx = np.empty((2, bb), np.int32)
+                tbl = np.empty((bb, pb), np.int32)
+            # every lane, padded ones too: a padded lane writes the trash
+            # page and reads nothing
+            tok[:] = 0
+            pos[:] = 0
+            widx[:] = self._trash * page
+            tbl[:] = self._trash
+            ctx[:] = 0
             for i, s in enumerate(slots):
                 p = slot_lens[s]
                 tok[i] = slot_tokens[s]
@@ -676,11 +780,28 @@ class PagedRealExecutor:
 
             self.buckets.record("decode", bb, pb)
             sp.phase("launch")
-            x = self._decode_fwd(self._tensor(tok, torch.long),
-                                 self._tensor(pos),
-                                 self._tensor(widx, torch.long),
-                                 self._tensor(tbl), self._tensor(ctx))
-            logits = self._finish(x[:n]).float()
+            if g is None:
+                mode = "eager"
+                x = self._decode_fwd(self._tensor(tok, torch.long),
+                                     self._tensor(pos),
+                                     self._tensor(widx, torch.long),
+                                     self._tensor(tbl), self._tensor(ctx))
+                logits = self._finish(x[:n]).float()
+            else:
+                if g.graph is None:
+                    mode = "capture"
+                    self._capture(g)
+                else:
+                    mode = "replay"
+                    self.graph_replays += 1
+                # the previous step's readback synchronised: the pinned
+                # buffer is free to be copied from again
+                g.dev.copy_(g.host, non_blocking=True)
+                g.graph.replay()
+                paged_attention.launches += g.launches
+                logits = g.logits[:n]
+            if sp:
+                sp.args["graph"] = mode
             # one [n, V] block to the host per step
             sp.phase("readback")
             self.last_logits = logits.cpu().numpy()

@@ -8,8 +8,10 @@ import torch
 
 def _inv_freqs(half: int, theta: float, device) -> torch.Tensor:
     exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device),
-                     exps)
+    # theta filled on the device: a host tensor copied to the card would
+    # synchronise, which a CUDA graph capture refuses
+    return torch.pow(torch.full((), theta, dtype=torch.float32,
+                                device=device), exps)
 
 
 def _rotate(x: torch.Tensor, sin: torch.Tensor,

@@ -41,7 +41,9 @@ The spans the port records, with their phases:
   (``Engine.step``: ``engine``, ``decode`` lanes, ``prefill_tokens``):
   no phases, their time outside their children is their own;
 - ``executor.decode`` (``PagedRealExecutor.decode``: ``engine``,
-  ``lanes``, ``reqs``): ``prep``, ``launch``, ``readback``, ``pick``;
+  ``lanes``, ``reqs``, ``graph``: ``"replay"``, ``"capture"`` or
+  ``"eager"``): ``prep``, ``launch`` (a capture falls in it),
+  ``readback``, ``pick``;
 - ``executor.prefill_chunk`` (``engine``, ``req``, ``tokens``,
   ``context``): ``prep``, ``launch``, then ``readback`` and ``pick`` when
   the chunk completes the prompt;
