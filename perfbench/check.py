@@ -2,7 +2,8 @@
 
 Once the window has closed, a sample of the requests the program finished,
 drawn from the seed and always holding the one with the most served
-tokens, is run through the plain reference over its prompt and served
+tokens, is run through the plain reference of the configuration's model
+family (its ``served_logits``, handed in) over its prompt and served
 tokens. Each served token's gap is how far the reference's logit of that
 token lies below the reference's best logit at the same position; the run
 is correct when the widest gap over the sample is within the cell's limit.
@@ -15,12 +16,10 @@ that the lower precision puts first.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-
-import reference
 
 SAMPLE_TOKENS = 256      # served tokens a sample holds at least
 SAMPLE_MIN_REQUESTS = 4  # and requests
@@ -66,19 +65,19 @@ def _gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return logits.max(-1).values - logits.gather(-1, tokens[:, None])[:, 0]
 
 
-def served_gap(params: Dict, dims: Dict, picked, device,
-               control: bool = False) -> Dict:
+def served_gap(served_logits: Callable, params: Dict, dims: Dict, picked,
+               device, control: bool = False) -> Dict:
     """Widest gap of the served tokens of ``picked`` [(prompt, tokens)]
-    under the reference, and the number of tokens read. With ``control``,
-    also ``control_gap_max``: at the same positions, the reference's gap
-    of the token that the fp8 reference puts first."""
+    under the reference ``served_logits`` (a family reference's), and the
+    number of tokens read. With ``control``, also ``control_gap_max``: at
+    the same positions, the reference's gap of the token that the fp8
+    reference puts first."""
     seqs, starts, served = _inputs(picked, device)
-    ref = reference.served_logits(params, dims, seqs, starts)
+    ref = served_logits(params, dims, seqs, starts)
     gaps = torch.cat([_gaps(r, t) for r, t in zip(ref, served)])
     out = {"gap_max": float(gaps.max()), "tokens": int(gaps.numel())}
     if control:
-        low = reference.served_logits(params, dims, seqs, starts,
-                                      quant="fp8")
+        low = served_logits(params, dims, seqs, starts, quant="fp8")
         out["control_gap_max"] = float(torch.cat(
             [_gaps(r, lo.argmax(-1)) for r, lo in zip(ref, low)]).max())
     return out

@@ -5,10 +5,10 @@
 
 For each seed, in one process: a run of the cell as ``run.py`` makes it
 (its traffic, warm-up and load, a window of ``--seconds``), then the
-comparison of its sample of served tokens with the reference, which gives
-the program's widest gap (a lower reading), and the control's on the same
-positions: the reference in fp8 put in the program's place (an upper
-reading). One JSON line per seed. The benchmark's own runs never run the
+comparison of its sample of served tokens with the plain reference of the
+cell's model family, which gives the program's widest gap (a lower
+reading), and the control's on the same positions: that same reference
+in fp8 put in the program's place (an upper reading). One JSON line per seed. The benchmark's own runs never run the
 control.
 """
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Drive one cell of the benchmark: a Cronus pair of the port serving a
 traffic mix on the host clock.
 
-The system under test is ``repro_torch``'s Cronus pair on the paged
-executor: ``serving.simulator.build_system("cronus", ...)`` with
-``paged_executor_factory``, behind the endpoint and round-robin router
+The system under test is ``repro_torch``'s Cronus pair on the
+configuration's executor (the paged one unless its ``serving`` names the
+slot executor): ``serving.simulator.build_system("cronus", ...)`` with
+``paged_executor_factory`` or ``slot_executor_factory``, behind the
+endpoint and round-robin router
 that ``ServeSpec`` wires for a pair, driven through
 ``InferenceService.submit`` and ``step``. The engines keep their simulated
 A100 (CPI) and A10 (PPI) clocks, which order their iterations and feed the
@@ -24,10 +26,16 @@ host clock (``time.perf_counter``):
 
 The loop runs ``warmup_s`` seconds of the mix before the window opens, so
 the window starts from the loop's steady state.
+
+The model reaches the harness only through its family
+(``families/<family>.py``, named by the configuration): its sizes, the
+port's config, the weights, the operations ``step_mfu`` counts and the
+plain reference that decides ``correct``.
 """
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import time
 from dataclasses import dataclass, field
@@ -41,11 +49,11 @@ import check
 import counts
 import devtrace
 import traffic as traffic_mod
-import weights
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 PROFILE_S = 5.0          # seconds of the window (its end) under the profiler
+DEFAULT_FAMILY = "dense"  # the family of a configuration that names none
 
 
 def checkout_caches() -> None:
@@ -66,19 +74,47 @@ def checkout_caches() -> None:
 @dataclass
 class Cell:
     """One workload of ``BENCHMARK.json`` with its configuration file, its
-    traffic mix and the metrics it reports."""
+    traffic mix, the metrics it reports, and its configuration's family
+    module with that family's plain reference."""
     name: str
     config: Dict
     mix: Dict
     limits: Dict
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    family: object
+    reference: object
+
+
+def _load_file(path: Path, module_name: str):
+    """The Python file ``path`` loaded as a module named ``module_name``."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_family(name: str, where: Path):
+    """The family module ``<where>/<name>.py`` and the module of its plain
+    reference (the file its ``reference`` names, beside the module)."""
+    path = where / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"the configuration names model family {name!r}, "
+                         f"but there is no family module {path}")
+    family = _load_file(path, f"perfbench_family_{name}")
+    ref = (where / family.reference).resolve()
+    if not ref.is_file():
+        raise SystemExit(f"model family {name!r} names its reference "
+                         f"{family.reference!r}, but there is no file {ref}")
+    return family, _load_file(ref, f"perfbench_reference_{name}")
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
     """The cell ``name`` as ``BENCHMARK.json`` and the files it names
-    define it: ``configs[].file``, ``perfbench/traffic/<traffic>.json``
-    and ``perfbench/limits/<workload>.json``."""
+    define it: ``configs[].file``, ``perfbench/traffic/<traffic>.json``,
+    ``perfbench/limits/<workload>.json`` and the family module
+    ``perfbench/families/<family>.py`` of the configuration's ``family``
+    (``dense`` where it names none)."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -97,7 +133,10 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if ("workloads" in m and name in m["workloads"])
                  or ("workloads" not in m and m["moves"] in reported)]
-    return Cell(name, config, mix, limits, e2e, per_layer)
+    family, reference = load_family(config.get("family", DEFAULT_FAMILY),
+                                    root / "perfbench" / "families")
+    return Cell(name, config, mix, limits, e2e, per_layer, family,
+                reference)
 
 
 def model_dims(config: Dict) -> Dict:
@@ -130,23 +169,39 @@ def port_config(config: Dict, dims: Dict):
 
 def build_service(cfg, params: Dict, serving: Dict, device,
                   use_kernels: Optional[bool] = None):
-    """A Cronus pair of paged executors sharing ``params``, as an
-    ``InferenceService`` with the pair's endpoint and router."""
+    """A Cronus pair of executors sharing ``params``, as an
+    ``InferenceService`` with the pair's endpoint and router. The
+    executor is ``serving["executor"]``: ``"paged"`` (the default; KV in
+    a pool of ``num_kv_blocks`` blocks an engine, the CUDA kernels on the
+    card unless ``use_kernels`` says otherwise) or ``"real"`` (the slot
+    executor, which serves every family of the port: ``s_kv`` positions a
+    slot)."""
     from repro_torch.cluster.router import RoundRobinRouter
     from repro_torch.models.transformer import DecoderModel
     from repro_torch.serving.api import (InferenceService,
-                                         paged_executor_factory)
+                                         paged_executor_factory,
+                                         slot_executor_factory)
     from repro_torch.serving.hardware import DEVICES
     from repro_torch.serving.simulator import build_system
-    model = DecoderModel(cfg, params, device=device)
-    factory = paged_executor_factory(cfg, model, params, device=device,
-                                     use_kernels=use_kernels)
+    # MoE layers drop no token, as the port's serving builds run them
+    model = DecoderModel(cfg, params, device=device, exact_moe=True)
+    executor = serving.get("executor", "paged")
+    if executor == "paged":
+        factory = paged_executor_factory(cfg, model, params, device=device,
+                                         use_kernels=use_kernels)
+    elif executor == "real":
+        factory = slot_executor_factory(cfg, model, params, device=device,
+                                        max_slots=serving["max_slots"],
+                                        s_kv=serving["s_kv"])
+    else:
+        raise SystemExit(f"serving executor {executor!r}: the benchmark "
+                         f"runs 'paged' or 'real'")
     system = build_system(
         "cronus", cfg, DEVICES[serving["hi"]], DEVICES[serving["lo"]],
         max_slots=serving["max_slots"], block_size=serving["block_size"],
         max_batched_tokens=serving["max_batched_tokens"],
         sched_policy=serving["sched_policy"],
-        num_kv_blocks=serving["num_kv_blocks"], executor="paged",
+        num_kv_blocks=serving.get("num_kv_blocks"), executor=executor,
         executor_factory=factory)
     return InferenceService([system.endpoint()], RoundRobinRouter(),
                             cfg=cfg, system=system)
@@ -215,13 +270,11 @@ def _kv_peaks(service, peaks: Dict) -> None:
         peaks[eng.name] = (max(old[0], reserved), max(old[1], live))
 
 
-def _wrap_executors(service, rec: Record, dims: Dict, sync: Callable
-                    ) -> None:
+def _wrap_executors(service, rec: Record, dims: Dict, sync: Callable,
+                    model_flops: Callable) -> None:
     """Time each executor call between two synchronises and count the
-    work it needs (the model's operations, for ``step_mfu``)."""
-    flops = dict(n_layers=dims["n_layers"], d=dims["d"], h=dims["h"],
-                 kvh=dims["kvh"], hd=dims["hd"], d_ff=dims["d_ff"],
-                 vocab=dims["vocab"])
+    work it needs (the model's operations, for ``step_mfu``, by the
+    family's ``model_flops``)."""
 
     def timed(fn, label):
         sync()
@@ -242,8 +295,8 @@ def _wrap_executors(service, rec: Record, dims: Dict, sync: Callable
                                       enc_emb=enc_emb),
                            f"executor.prefill_chunk ({_n})")
             c = len(tokens)
-            rec.step_flops += counts.model_flops(
-                **flops, tokens=c, attn_pairs=counts.causal_pairs(ctx_len, c),
+            rec.step_flops += model_flops(
+                dims, tokens=c, attn_pairs=counts.causal_pairs(ctx_len, c),
                 head_rows=1 if completes else 0)
             if rec.on:
                 rec.prefill.append((_n, c, int(ctx_len), s, rec.profiling))
@@ -253,8 +306,8 @@ def _wrap_executors(service, rec: Record, dims: Dict, sync: Callable
             out, s = timed(lambda: _f(slot_tokens, slot_lens),
                            f"executor.decode ({_n})")
             lens = tuple(int(v) + 1 for v in slot_lens.values())
-            rec.step_flops += counts.model_flops(
-                **flops, tokens=len(lens), attn_pairs=sum(lens),
+            rec.step_flops += model_flops(
+                dims, tokens=len(lens), attn_pairs=sum(lens),
                 head_rows=len(lens))
             if rec.on:
                 rec.decode.append((_n, lens, s, rec.profiling))
@@ -430,7 +483,7 @@ def free_program(service) -> None:
     its memory back before the reference runs."""
     for eng in service.engines:
         ex = eng.executor
-        for key in ("k_pool", "v_pool"):
+        for key in ("k_pool", "v_pool", "cache"):
             if hasattr(ex, key):
                 setattr(ex, key, None)
     gc.collect()
@@ -460,15 +513,11 @@ class Run:
 def reader(metric: str):
     """The reader of a per-layer metric: ``metrics/<name>.py``, else the
     file of the quantity it splits (the name before its first dot)."""
-    import importlib.util
     for stem in (metric, metric.split(".")[0]):
         path = HERE / "metrics" / f"{stem}.py"
         if path.exists():
-            spec = importlib.util.spec_from_file_location(
-                f"perfbench_metric_{stem.replace('.', '_')}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.read
+            return _load_file(
+                path, f"perfbench_metric_{stem.replace('.', '_')}").read
     raise SystemExit(f"no reader for per-layer metric {metric!r}")
 
 
@@ -489,8 +538,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     ``fault`` breaks the built service before the run, and ``control``
     adds the fp8 control's reading of the same sample (tests and
     ``control.py`` only; the benchmark's runs take neither)."""
-    dims = model_dims(cell.config)
-    cfg = port_config(cell.config, dims)
+    family = cell.family
+    dims = family.dims(cell.config)
+    cfg = family.port_config(cell.config, dims)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         from repro_torch.kernels import build
@@ -501,8 +551,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
             with devtrace.profiler():
                 torch.ones(1, device=device).add_(1)
                 torch.cuda.synchronize()
-    params = weights.make_params(dims, seed, device,
-                                 getattr(torch, cell.config["torch_dtype"]))
+    params = family.make_params(dims, seed, device,
+                                getattr(torch, cell.config["torch_dtype"]))
     service = build_service(cfg, params, cell.config["serving"], device,
                             use_kernels)
     if fault is not None:
@@ -510,7 +560,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     rec = Record()
     _wrap_tokens(service, rec)
     if trace:
-        _wrap_executors(service, rec, dims, _sync_for(device))
+        _wrap_executors(service, rec, dims, _sync_for(device),
+                        family.model_flops)
     _count_prefill(service, rec)
     mix = cell.mix
     tr = traffic_mod.Traffic(mix, seed, dims["vocab"])
@@ -560,13 +611,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    reading = (check.served_gap(params, dims, picked, device, control)
+    reading = (check.served_gap(cell.reference.served_logits, params,
+                                dims, picked, device, control)
                if picked else {"gap_max": float("inf"), "tokens": 0})
     limit = float(cell.limits["logit_gap_max"]["limit"])
     correct = bool(reading["tokens"] > 0 and reading["gap_max"] <= limit)
     checks = {"logit_gap_max": {"value": reading["gap_max"],
                                 "limit": limit}}
-    pool = cell.config["serving"]["num_kv_blocks"]
+    pool = cell.config["serving"].get("num_kv_blocks")
     info = dict(e2e, kv_blocks={"pool": pool, **{
         k: list(v) for k, v in kv_peaks.items()}},
                 requests_checked=len(picked),

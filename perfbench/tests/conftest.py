@@ -4,8 +4,8 @@ The harness's modules and the port's package are put on the path; no JAX
 is imported. Tests that need a card carry the ``chip`` marker and take the
 ``chip`` fixture, which skips them where ``torch.cuda`` finds no device
 (decided when the test runs, never at import). A smoke-size cell, the
-harness's whole run on the CPU at widths a test can hold, is built by
-:func:`smoke_cell`.
+harness's whole run on the CPU at the widths its model family gives for
+tests, is built by :func:`smoke_cell`.
 """
 import sys
 from pathlib import Path
@@ -33,21 +33,20 @@ def chip():
         pytest.skip("needs a CUDA device (run on the card)")
 
 
-SMOKE = dict(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
-             head_dim=64, intermediate_size=512, vocab_size=512)
-
-
-def smoke_cell(workload: str, layers: int = 2, mix: str = None):
-    """The cell ``workload`` at smoke widths and ``layers`` layers, with a
-    short mix that keeps its loop (or that of ``perfbench/traffic/<mix>``
-    where ``mix`` is given): prompts ~60 tokens, outputs ~8, 1 s of
-    warm-up."""
+def smoke_cell(workload: str, layers: int = 2, mix: str = None,
+               root: Path = ROOT):
+    """The cell ``workload`` (of ``<root>/BENCHMARK.json``) at its
+    family's smoke widths (``smoke(config)``) and ``layers`` layers, with
+    a short mix that keeps its loop (or that of
+    ``perfbench/traffic/<mix>`` where ``mix`` is given): prompts ~60
+    tokens, outputs ~8, 1 s of warm-up."""
     import json
     import harness
-    cell = harness.load_cell(workload)
+    cell = harness.load_cell(workload, root)
     if mix is not None:
         cell.mix = json.loads((BENCH / "traffic" / f"{mix}.json").read_text())
-    cell.config = dict(cell.config, **SMOKE, num_hidden_layers=layers)
+    cell.config = dict(cell.family.smoke(cell.config),
+                       num_hidden_layers=layers)
     cell.config["serving"] = dict(cell.config["serving"], max_slots=8,
                                   num_kv_blocks=256)
     cell.mix = {**cell.mix, "rate": 4.0, "clients": 6, "mean_in": 60,

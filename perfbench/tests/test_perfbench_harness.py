@@ -61,11 +61,13 @@ def test_comparison_fails_a_perturbed_output():
             params, dims, [torch.tensor(seq)], [len(seq)])[0]
         tokens.append(int(logits[-1].argmax()))
         seq.append(tokens[-1])
-    sound = check.served_gap(params, dims, [(prompt, tokens)], "cpu")
+    sound = check.served_gap(reference.served_logits, params, dims,
+                             [(prompt, tokens)], "cpu")
     assert sound["gap_max"] == 0.0 and sound["tokens"] == 6
     bad = list(tokens)
     bad[3] = (bad[3] + 1) % dims["vocab"]
-    broken = check.served_gap(params, dims, [(prompt, bad)], "cpu")
+    broken = check.served_gap(reference.served_logits, params, dims,
+                              [(prompt, bad)], "cpu")
     limit = cell.limits["logit_gap_max"]["limit"]
     assert broken["gap_max"] > limit
 
@@ -129,7 +131,8 @@ def test_control_reads_above_the_limit(seed):
     rng = np.random.default_rng(seed)
     picked = [(rng.integers(0, dims["vocab"], 60).astype(np.int32),
                list(rng.integers(0, dims["vocab"], 100))) for _ in range(4)]
-    out = check.served_gap(params, dims, picked, "cpu", control=True)
+    out = check.served_gap(cell.reference.served_logits, params, dims, picked,
+                           "cpu", control=True)
     assert out["tokens"] == 400
     assert out["control_gap_max"] > cell.limits["logit_gap_max"]["limit"]
 
@@ -161,3 +164,17 @@ def test_ppi_share_counts_every_served_request_split_or_not():
     assert harness.reader("ppi_token_share.lat")(run) == pytest.approx(25.0)
     rec.tokens.clear()
     assert harness.reader("ppi_token_share.lat")(run) is None
+
+
+def test_tbt_tail_reader_reads_the_window_gaps_as_end_to_end_does():
+    sent = []
+    # gaps of 10, 20 and 40 ms end in the window; the 1 s gap ends before it
+    rec = harness.Record(tokens={"a": [0.0, 1.0, 1.01, 1.03],
+                                 "b": [1.5, 1.54], "c": [0.2]})
+    run = harness.Run({}, sent, 1.005, 10.0, rec, None)
+    e2e = harness.end_to_end(sent, rec, 1.005, 10.0)
+    tail = harness.reader("tbt_p99_ms.lat")(run)
+    assert tail == pytest.approx(e2e["tbt_p99_ms"])
+    assert 39.0 < tail < 40.0 and e2e["tbt_p50_ms"] == pytest.approx(20.0)
+    rec.tokens = {"a": [0.0, 0.1]}
+    assert harness.reader("tbt_p99_ms.lat")(run) is None

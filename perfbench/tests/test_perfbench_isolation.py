@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the program. Modules are compared by their
+references (``reference.py`` and every ``families/*_reference.py``) and
+the comparison load nothing of the program. Modules are compared by their
 top-level name, whole: ``repro_torch`` is the port, ``repro`` the JAX
 package."""
 import ast
@@ -42,20 +43,30 @@ def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
     assert run.forbidden_modules() == ["repro"]
 
 
+def _references():
+    """``reference.py``, ``check.py`` and every family's reference,
+    ``families/*_reference.py``, found by glob."""
+    return [BENCH / "reference.py", BENCH / "check.py",
+            *sorted((BENCH / "families").glob("*_reference.py"))]
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    code = (f"import sys; sys.path.insert(0, {str(BENCH)!r}); "
-            "import reference, check; "
+    paths = _references()
+    code = (f"import sys, importlib.util; sys.path.insert(0, {str(BENCH)!r})\n"
+            f"for i, p in enumerate({[str(p) for p in paths]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ref{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'repro_torch', 'repro', 'jax', 'jaxlib', 'flax'}))")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip() == "[]"
-    for name in ("reference.py", "check.py"):
-        tree = ast.parse((BENCH / name).read_text())
+    allowed = {"torch", "numpy"} | set(sys.stdlib_module_names)
+    for path in paths:
+        tree = ast.parse(path.read_text())
         mods = {a.name.split(".")[0] for n in ast.walk(tree)
                 if isinstance(n, ast.Import) for a in n.names}
         mods |= {n.module.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, ast.ImportFrom) and n.module}
-        assert mods <= {"__future__", "contextlib", "typing", "numpy",
-                        "torch", "reference"}, (name, mods)
+        assert mods <= allowed, (path.name, mods - allowed)
